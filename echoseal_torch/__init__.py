@@ -5,16 +5,20 @@ package of its own: it imports torch, numpy, scipy and the standard
 library, never JAX, ``echoseal_tpu`` or ``cryptography``.  The JAX package
 stays the reference each ported function is checked against.
 
-Public surface (this slice: the compat batch verify and the host TX):
+Public surface (so far: the compat and v2 batch verify and the host TX):
 
-    BatchVerifier      -- multi-clip verification, one device stage per batch
-    WatermarkEmbedder  -- streaming TX mixer (sample-exact wire format)
-    SecureChannel      -- HKDF/AEAD/PN crypto core (host-side)
-    TxParams           -- TX configuration dataclass
+    BatchVerifier        -- compat multi-clip verification, one device stage
+    RobustBatchVerifier  -- v2 multi-clip verification with the SCL ladder
+    WatermarkEmbedder    -- streaming compat TX mixer (sample-exact format)
+    RobustEmbedder       -- streaming v2 TX mixer
+    SecureChannel        -- HKDF/AEAD/PN crypto core (host-side)
+    TxParams             -- TX configuration dataclass
 """
 from echoseal_torch.core.crypto import SecureChannel
 from echoseal_torch.core.params import TxParams
 from echoseal_torch.models.embedder import WatermarkEmbedder
-from echoseal_torch.models.pipeline import BatchVerifier
+from echoseal_torch.models.pipeline import BatchVerifier, RobustBatchVerifier
+from echoseal_torch.models.robust import RobustEmbedder
 
-__all__ = ["BatchVerifier", "WatermarkEmbedder", "SecureChannel", "TxParams"]
+__all__ = ["BatchVerifier", "RobustBatchVerifier", "WatermarkEmbedder",
+           "RobustEmbedder", "SecureChannel", "TxParams"]

@@ -1,12 +1,20 @@
 """Carry a verifier's state -- its key and design tables -- into torch.
 
-The compat verifier's "weights" are seven tables: the sync templates, the
-exact-inversion demod matrices ``m_direct``, the forward models ``t_fwd``,
-the preamble and header PN symbols, and the per-key PN and hop tables.
-``tables_from_numpy`` takes them as numpy arrays -- from
-``pipeline.host_tables`` or from any other verifier, e.g.
-``np.asarray(bv._m_direct)`` of ``echoseal_tpu``'s ``BatchVerifier`` -- and
-returns them as tensors of the port's dtypes on ``device``.
+A verifier's "weights" are its tables.  The compat verifier has seven:
+the sync templates, the exact-inversion demod matrices ``m_direct``, the
+forward models ``t_fwd``, the preamble and header PN symbols, and the
+per-key PN and hop tables.  The v2 (robust) verifier has six: the
+oversampled sync templates, the LS demod stack ``m_stack`` (both lam
+profiles), the preamble and header PN symbols, and the same PN and hop
+tables.
+
+``tables_from_numpy`` takes them as numpy arrays -- from the port's
+``pipeline.host_tables`` / ``host_tables_v2`` or from another verifier --
+and returns them as tensors of the port's dtypes on ``device``.
+``numpy_tables_of`` reads them off any verifier that keeps each table as an
+attribute ``_<name>``, as ``echoseal_tpu``'s ``BatchVerifier`` and
+``RobustBatchVerifier`` do, so that both packages can run on identical
+tables.
 """
 from __future__ import annotations
 
@@ -23,12 +31,27 @@ TABLE_DTYPES = {
     "hop_table": torch.int32,     # (max_ctr,) band index per counter
 }
 
+V2_TABLE_DTYPES = {
+    "templates": torch.float32,   # (4, 63 * S): (4, 504) at S = 8
+    "m_stack": torch.float32,     # (4, 2, 1215, 1215 * S): 378 MB at S = 8
+    "pre_sy": torch.float32,      # (63,)
+    "hdr_pn_sy": torch.float32,   # (128,)
+    "pn_table": torch.int8,       # (max_ctr, 1024) payload PN bits
+    "hop_table": torch.int32,     # (max_ctr,) band index per counter
+}
 
-def tables_from_numpy(d: dict[str, np.ndarray],
-                      device: str | torch.device) -> dict[str, torch.Tensor]:
+
+def tables_from_numpy(d: dict[str, np.ndarray], device: str | torch.device,
+                      dtypes: dict[str, torch.dtype] = TABLE_DTYPES
+                      ) -> dict[str, torch.Tensor]:
     """Numpy tables -> tensors (copies) on ``device``; keys are checked."""
-    if set(d) != set(TABLE_DTYPES):
-        raise KeyError(f"tables need keys {sorted(TABLE_DTYPES)}, "
-                       f"got {sorted(d)}")
+    if set(d) != set(dtypes):
+        raise KeyError(f"tables need keys {sorted(dtypes)}, got {sorted(d)}")
     return {k: torch.as_tensor(np.array(d[k]), dtype=dt, device=device)
-            for k, dt in TABLE_DTYPES.items()}
+            for k, dt in dtypes.items()}
+
+
+def numpy_tables_of(verifier, dtypes: dict[str, torch.dtype] = TABLE_DTYPES
+                    ) -> dict[str, np.ndarray]:
+    """The tables a verifier keeps as ``_<name>`` attributes, as numpy."""
+    return {k: np.asarray(getattr(verifier, "_" + k)) for k in dtypes}

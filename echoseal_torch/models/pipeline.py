@@ -1,7 +1,8 @@
-"""Batched multi-clip verification -- the compat serving pipeline in torch.
+"""Batched multi-clip verification -- the serving pipelines in torch.
 
-The counterpart of ``echoseal_tpu/models/pipeline.py``'s compat tier
-(``_batch_verify_stage`` + ``BatchVerifier``):
+The counterpart of ``echoseal_tpu/models/pipeline.py``'s two batch tiers.
+
+Compat (``_batch_verify_stage`` + ``BatchVerifier``):
 
 * All per-key randomness is precomputed once into device tables: the PN
   payload keystream for every frame counter below ``max_ctr`` (one AES
@@ -15,8 +16,15 @@ The counterpart of ``echoseal_tpu/models/pipeline.py``'s compat tier
 * The host finishes with the AEAD open + magic/ctr checks per clip, and
   resolves clips cut past the PN table with the extended-counter pass.
 
-Device rule: ``device=None`` means CUDA; without a card the verifier
-raises unless the caller passes ``device="cpu"``.  Precision rule: every
+v2 / robust profile (``_batch_verify_stage_v2`` + ``RobustBatchVerifier``):
+oversampled 504-tap sync (bf16 operands, float32 sums), one LS product
+against both lam profiles (no refinement), the standard polar info set,
+and a ladder after the hard pass -- futility gate, staged SCL list decode
+of each failing clip's top-4 soft rows, extended counters.  The soft rows
+stay on the device; the host downloads only what it opens.
+
+Device rule: ``device=None`` means CUDA; without a card the verifiers
+raise unless the caller passes ``device="cpu"``.  Precision rule: every
 product is true float32 (the lam=1e-12 exact inversion does not survive
 TF32), so constructing a verifier sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -24,23 +32,42 @@ TF32), so constructing a verifier sets
 """
 from __future__ import annotations
 
+import time
 import typing
 
 import numpy as np
 import torch
 
-from echoseal_torch.convert import tables_from_numpy
-from echoseal_torch.core.bandplan import hop_schedule
+from echoseal_torch.convert import (
+    TABLE_DTYPES,
+    V2_TABLE_DTYPES,
+    tables_from_numpy,
+)
+from echoseal_torch.core.bandplan import BAND_PLAN, hop_schedule
 from echoseal_torch.core.crypto import SecureChannel
+from echoseal_torch.core.device import resolve_device
 from echoseal_torch.core.params import FRAME_LEN, HDR_L, MAGIC, PRE_L, WIDE_DELTA
+from echoseal_torch.core.profiles import ROBUST, WaveformProfile, profile_spec
 from echoseal_torch.core.sequences import bits_to_bpsk, mls63
+from echoseal_torch.models.robust import (
+    LAM_PROFILES,
+    robust_demod_matrix,
+    robust_templates,
+)
 from echoseal_torch.ops import demod
 from echoseal_torch.ops.llr import payload_llr
 from echoseal_torch.ops.polar import PolarSpec, hard_decode_batch, polar_spec
+from echoseal_torch.ops.scl import scl_decode
 
 DEFAULT_MAX_CTR = 16_384     # ~7 min of stream @ 39.5 frames/s
 DEFAULT_PEAKS = 2            # sync peaks examined per band per clip
 N_OFFSETS = len(demod.SYNC_OFFSETS)
+
+# SCL fallback list-size escalation: rungs below the configured list_size
+# that still-failing clips climb through; the final rung is the configured
+# list size, so the rescue set can only GROW vs a fixed-L fallback (rescue
+# is a disjunction over rows and rungs, and every accept is AEAD-gated)
+SCL_LADDER = (8, 32)
 
 
 class ClipDetail(typing.NamedTuple):
@@ -48,18 +75,21 @@ class ClipDetail(typing.NamedTuple):
 
     session_nonce: bytes
     frame_ctr: int
-    stage: str                # 'hard' | 'ext_ctr'
+    stage: str                # 'hard' | 'scl' | 'ext_ctr'
 
 
-def resolve_device(device: str | torch.device | None) -> torch.device:
-    """``None`` -> CUDA, which must exist; anything else as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run the verifier on "
-                "the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+def resolve_sync_dtype(sync_dtype: str | None) -> torch.dtype:
+    """The v2 sync precision: ``None``/``"bf16"`` -> bf16, ``"f32"`` -> f32.
+
+    Anything else raises, so a typo such as ``"bfloat16"`` cannot silently
+    select float32.
+    """
+    if sync_dtype is None or sync_dtype == "bf16":
+        return torch.bfloat16
+    if sync_dtype == "f32":
+        return torch.float32
+    raise ValueError(
+        f"sync_dtype must be None, 'bf16' or 'f32', got {sync_dtype!r}")
 
 
 def _mark(marks: list | None, name: str) -> None:
@@ -83,7 +113,8 @@ def _batch_verify_stage(x: torch.Tensor, n_valid: torch.Tensor,
     "header_counter", "llr", "hard_decode" -- for per-stage device times
     (CUDA only).
     """
-    idx, val = _sync_stage(x, n_valid, tables["templates"], peaks, marks)
+    idx, val = _sync_stage(x, n_valid, tables["templates"], peaks, FRAME_LEN,
+                           marks=marks)
     chips, pre_best = _demod_stage(x, idx, tables)
     _mark(marks, "demod_refine")
     out = _decode_stage(chips, idx, val, tables, marks)
@@ -91,13 +122,18 @@ def _batch_verify_stage(x: torch.Tensor, n_valid: torch.Tensor,
                 chips=chips)      # (B, 4, P, 1215) refined chip estimates
 
 
-def _sync_stage(x, n_valid, templates, peaks, marks=None):
-    """4-band sync correlation over the valid lags -> NMS peaks (B, 4, P)."""
-    corr = demod.normalized_xcorr(x, templates)            # (B, 4, T-62)
+def _sync_stage(x, n_valid, templates, peaks, span, compute_dtype=None,
+                marks=None):
+    """4-band sync correlation over the valid lags -> NMS peaks (B, 4, P).
+
+    A lag is valid while a whole frame of ``span`` samples fits before
+    ``n_valid``; peaks are at least ``span // 2`` apart.
+    """
+    corr = demod.normalized_xcorr(x, templates, compute_dtype=compute_dtype)
     _mark(marks, "sync_xcorr")
     lag = torch.arange(corr.shape[-1], device=x.device)
-    corr.masked_fill_(lag > (n_valid[:, None, None] - FRAME_LEN), float("-inf"))
-    out = demod.topk_nms(corr, peaks, FRAME_LEN // 2)
+    corr.masked_fill_(lag > (n_valid[:, None, None] - span), float("-inf"))
+    out = demod.topk_nms(corr, peaks, span // 2)
     _mark(marks, "sync_nms")
     return out
 
@@ -133,51 +169,76 @@ def _demod_stage(x, idx, tables):
     return chips, torch.gather(pre.reshape(B, 4, -1), -1, flat)
 
 
-def _decode_stage(chips, idx, val, tables, marks=None):
+def _decode_stage(chips, idx, val, tables, marks=None, *,
+                  spec: PolarSpec | None = None, span: int = FRAME_LEN,
+                  soft_rows: int = 0):
     """Chips of every candidate -> header, counter, LLR, hard decode, row.
 
     Everything after the chip estimates: a pure function of ``chips`` and
-    the peaks, so it can be run on chips from elsewhere.
+    the peaks, so it can be run on chips from elsewhere.  ``chips`` is
+    (B, 4, ..., P, 1215): the candidates of P peaks per band, with the v2
+    lam profiles on the axes between; ``idx``/``val`` are the (B, 4, P)
+    peaks, ``span`` the frame length in samples and ``spec`` the polar code
+    (compat by default).
+
+    ``soft_rows`` R > 0 (v2) also exports each clip's R best soft rows
+    (highest mean |LLR| among plausible rows) with their counters for the
+    SCL fallback, and appends the futility-gate evidence to the host row:
+    any readable header (1 byte) and the best row's mean |LLR| (float32,
+    little-endian) -> (B, 65).  A stable descending sort keeps
+    ``lax.top_k``'s lower-index-first order on ties (-inf rows tie in
+    bulk).  The extra work is marked "pack".
     """
-    B = chips.shape[0]
+    spec = spec or polar_spec()
+    B, P = chips.shape[0], idx.shape[-1]
     dev = chips.device
+    lattice = (B, 4) + (1,) * (chips.ndim - 4) + (P,)   # broadcasts on chips
     hdr_ok, lo16, hdr_score = demod.header_decode(chips, tables["hdr_pn_sy"])
-    ctr_est = torch.round(idx.to(torch.float32) / FRAME_LEN).to(torch.int32)
+    ctr_est = torch.round(idx.to(torch.float32) / span).to(torch.int32)
     pn_table, hop_table = tables["pn_table"], tables["hop_table"]
-    band_ids = torch.arange(4, dtype=torch.int32, device=dev)[None, :, None]
+    band_ids = torch.arange(4, dtype=torch.int32, device=dev).reshape(
+        1, 4, *lattice[2:-1], 1)
     ctr, any_match = _resolve_counters(
-        hdr_ok, lo16, ctr_est, hop_table, band_ids, pn_table.shape[0])
-    pn_sy = 2.0 * pn_table[ctr.long()].to(torch.float32) - 1.0  # (B,4,P,1024)
+        hdr_ok, lo16, ctr_est.reshape(lattice), hop_table, band_ids,
+        pn_table.shape[0])
+    pn_sy = 2.0 * pn_table[ctr.long()].to(torch.float32) - 1.0  # (..., 1024)
     _mark(marks, "header_counter")
 
     llr = payload_llr(chips, pn_sy)
+    del pn_sy
     _mark(marks, "llr")
-    info, crc_ok = hard_decode_batch(llr, polar_spec())
-    crc_ok = crc_ok & torch.isfinite(val) & any_match
-
-    # select the first CRC-passing candidate per clip (argmax returns the
-    # first maximum) and pack its payload to bytes on the device
-    flat_ok = crc_ok.reshape(B, -1)
-    best = torch.argmax(flat_ok.to(torch.int32), dim=-1)    # first True
-    rows = torch.arange(B, device=dev)
-    sel_ok = flat_ok[rows, best]
-    sel_info = info.reshape(B, -1, info.shape[-1])[rows, best]
-    sel_ctr = ctr.reshape(B, -1)[rows, best]
-    pow2 = 2 ** torch.arange(7, -1, -1, dtype=torch.int32, device=dev)
-    blob = torch.sum(sel_info.reshape(B, -1, 8) * pow2, dim=-1).to(
-        torch.uint8)                                        # (B, 55)
-    host_packed = _pack_host_row(sel_ok, sel_ctr, blob)
+    info, crc_ok = hard_decode_batch(llr, spec)
+    row_ok = torch.isfinite(val).reshape(lattice) & any_match
+    crc_ok = crc_ok & row_ok
+    sel_ok, sel_ctr, blob, host_packed = _select_first(crc_ok, info, ctr)
     _mark(marks, "hard_decode")
 
-    return dict(
+    out = dict(
         ok=sel_ok, blob=blob, blob_ctr=sel_ctr,
         host_packed=host_packed,   # (B, 60) -- ONE host download
-        crc_ok=crc_ok,             # (B, 4, P)
-        info_bits=info,            # (B, 4, P, 440)
-        ctr=ctr,                   # (B, 4, P)
+        crc_ok=crc_ok,             # (B, 4, ..., P)
+        info_bits=info,            # (B, 4, ..., P, 440)
+        ctr=ctr,                   # (B, 4, ..., P)
         hdr_ok=hdr_ok, hdr_score=hdr_score,
-        hdr_lo16=lo16,             # (B, 4, P) raw 16-bit header reads
+        hdr_lo16=lo16,             # (B, 4, ..., P) raw 16-bit header reads
     )
+    if soft_rows:
+        rows = torch.arange(B, device=dev)[:, None]
+        quality = torch.where(row_ok, torch.mean(torch.abs(llr), dim=-1),
+                              float("-inf")).reshape(B, -1)
+        qv, qtop = torch.sort(quality, dim=-1, descending=True, stable=True)
+        qv, qtop = qv[:, :soft_rows], qtop[:, :soft_rows]
+        any_hdr = torch.any((hdr_ok & row_ok).reshape(B, -1), dim=-1)
+        q_best = torch.where(torch.isfinite(qv[:, 0]), qv[:, 0], 0.0)
+        out.update(
+            scl_llr=llr.reshape(B, -1, llr.shape[-1])[rows, qtop],  # (B,R,1024)
+            scl_ctr=ctr.reshape(B, -1)[rows, qtop],                 # (B, R)
+            host_packed=torch.cat(
+                [host_packed, any_hdr.to(torch.uint8)[:, None],
+                 q_best.to(torch.float32).contiguous().view(torch.uint8)
+                 .reshape(B, 4)], dim=1))
+        _mark(marks, "pack")
+    return out
 
 
 @torch.no_grad()
@@ -200,9 +261,7 @@ def _ext_ctr_stage(chips_all, ii, bb, pp, pn_packed, spec: PolarSpec):
     bits = (pn_packed[:, :, None] >> shifts) & 1
     pn_sy = 2.0 * bits.reshape(pn_packed.shape[0], -1).to(torch.float32) - 1.0
     info, crc_ok = _llr_hard_stage(chips, pn_sy, spec)
-    ib = info.reshape(info.shape[0], -1, 8).to(torch.uint8)
-    packed = torch.sum(ib << shifts, dim=-1).to(torch.uint8)
-    return torch.cat([crc_ok.to(torch.uint8)[:, None], packed], dim=1)
+    return torch.cat([crc_ok.to(torch.uint8)[:, None], _pack_bits(info)], dim=1)
 
 
 def _key_tables(sec: SecureChannel, hop, max_ctr: int):
@@ -225,10 +284,34 @@ def host_tables(sec: SecureChannel, hop, fs: int,
         pn_table=pn_table, hop_table=hop_table)
 
 
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 8m) {0,1} bits -> (..., m) uint8 bytes, MSB first (np.packbits)."""
+    pow2 = 2 ** torch.arange(7, -1, -1, dtype=torch.int32, device=bits.device)
+    grouped = bits.reshape(*bits.shape[:-1], bits.shape[-1] // 8, 8)
+    return torch.sum(grouped.to(torch.int32) * pow2, dim=-1).to(torch.uint8)
+
+
+def _select_first(crc_ok, info, ctr):
+    """Each clip's first CRC-passing candidate, packed into its host row.
+
+    ``crc_ok`` (B, ...) and ``ctr`` (B, ...) span a clip's candidate
+    lattice, ``info`` (B, ..., info_len) its decoded bits.  Returns
+    (sel_ok (B,), sel_ctr (B,), blob (B, info_len/8), host_packed).
+    """
+    B = crc_ok.shape[0]
+    flat_ok = crc_ok.reshape(B, -1)
+    best = torch.argmax(flat_ok.to(torch.int32), dim=-1)    # first True
+    rows = torch.arange(B, device=crc_ok.device)
+    sel_ok = flat_ok[rows, best]
+    sel_ctr = ctr.reshape(B, -1)[rows, best]
+    blob = _pack_bits(info.reshape(B, -1, info.shape[-1])[rows, best])
+    return sel_ok, sel_ctr, blob, _pack_host_row(sel_ok, sel_ctr, blob)
+
+
 def _pack_host_row(sel_ok, sel_ctr, blob):
     """(B,) ok + (B,) int32 ctr + (B, 55) blob -> ONE (B, 60) uint8 row.
 
-    Byte layout: ok(1) | ctr big-endian(4) | blob(55).
+    Byte layout: ok(1) | ctr big-endian(4) | blob(55 at K = 448).
     """
     ctr_bytes = torch.stack(
         [(sel_ctr >> s) & 0xFF for s in (24, 16, 8, 0)], dim=-1).to(torch.uint8)
@@ -257,6 +340,65 @@ def _resolve_counters(hdr_ok, lo16, ctr_est, hop_table, band_ids, max_ctr):
     return ctr, hdr_resolved | torch.any(match_nohdr, dim=-1)
 
 
+def host_tables_v2(sec: SecureChannel, hop, fs: int, max_ctr: int,
+                   profile: WaveformProfile = ROBUST) -> dict[str, np.ndarray]:
+    """Every table the v2 stage reads, as numpy arrays."""
+    S = profile.oversample
+    pn_table, hop_table = _key_tables(sec, hop, max_ctr)
+    m_stack = np.stack([
+        np.stack([robust_demod_matrix(lo, hi, fs, S, lam)
+                  for lam in LAM_PROFILES])
+        for lo, hi in BAND_PLAN])                       # (4, 2, 1215, span)
+    return dict(
+        templates=robust_templates(fs, S), m_stack=m_stack,
+        pre_sy=bits_to_bpsk(mls63()),
+        hdr_pn_sy=bits_to_bpsk(sec.pn_bits(0, HDR_L)),
+        pn_table=pn_table, hop_table=hop_table)
+
+
+def _ls_demod(win: torch.Tensor, m_stack: torch.Tensor) -> torch.Tensor:
+    """(B, 4, K, W) windows x (4, NP, C, W) LS stack -> (B, 4, NP, K, C).
+
+    JAX's ``einsum("bfkw,fpcw->bfpkc")`` as ONE band-batched float32
+    matmul (4, B*K, W) @ (4, W, NP*C); the stack is read in place, never
+    broadcast against the rows.
+    """
+    B, nb, K, W = win.shape
+    _, NP, C, _ = m_stack.shape
+    out = demod._band_major(win) @ m_stack.reshape(nb, NP * C, W).transpose(1, 2)
+    return out.reshape(nb, B, K, NP, C).permute(1, 0, 3, 2, 4).contiguous()
+
+
+@torch.no_grad()
+def _batch_verify_stage_v2(x: torch.Tensor, n_valid: torch.Tensor,
+                           tables: dict[str, torch.Tensor], *, peaks: int,
+                           span: int, spec: PolarSpec,
+                           sync_dtype: torch.dtype = torch.bfloat16,
+                           marks: list | None = None
+                           ) -> dict[str, torch.Tensor]:
+    """One v2 (oversampled-profile) batch stage: (B, Tpad) clips -> outputs.
+
+    ``tables`` holds the key's device tables (``convert.V2_TABLE_DTYPES``).
+    Differences from the compat stage: ``sync_dtype`` sync over ``span``
+    samples, one LS product against both lam profiles (no refinement), the
+    standard polar info set (``spec``), and each clip's top-4 soft rows
+    exported for the SCL fallback (``_decode_stage``).  ``marks`` (CUDA
+    only) receives an event after each of "sync_xcorr", "sync_nms",
+    "demod", "header_counter", "llr", "hard_decode" and "pack".
+    """
+    idx, val = _sync_stage(x, n_valid, tables["templates"], peaks, span,
+                           compute_dtype=sync_dtype, marks=marks)
+    win = demod.slice_windows(x, idx, span)                  # (B, 4, K, span)
+    win = win * torch.rsqrt(torch.mean(win * win, -1, keepdim=True) + 1e-30)
+    chips = _ls_demod(win, tables["m_stack"])                # (B,4,NP,K,1215)
+    del win
+    _mark(marks, "demod")
+    out = _decode_stage(chips, idx, val, tables, marks, spec=spec, span=span,
+                        soft_rows=min(4, 4 * chips.shape[2] * peaks))
+    return dict(out, peak_idx=idx, peak_val=val,
+                chips=chips)      # (B, 4, NP, K, 1215) -- extended pass
+
+
 class BatchVerifier:
     """High-throughput multi-clip verifier (one device stage per batch).
 
@@ -266,6 +408,8 @@ class BatchVerifier:
     ``torch.backends.cudnn.allow_tf32`` to False (true float32 products).
     """
 
+    _TABLE_DTYPES = TABLE_DTYPES
+
     def __init__(self, key32: bytes, *, fs: int = 48_000,
                  max_ctr: int = DEFAULT_MAX_CTR,
                  peaks: int = DEFAULT_PEAKS,
@@ -274,26 +418,26 @@ class BatchVerifier:
         device = resolve_device(device)
         sec = SecureChannel(key32)
         hop = hop_schedule(key32)
-        self._setup(sec, hop, host_tables(sec, hop, fs, max_ctr), fs=fs,
-                    peaks=peaks, accept_legacy_plaintext=accept_legacy_plaintext,
-                    device=device)
+        self._setup(sec, hop, host_tables(sec, hop, fs, max_ctr), device,
+                    fs=fs, peaks=peaks,
+                    accept_legacy_plaintext=accept_legacy_plaintext)
 
     @classmethod
     def from_tables(cls, key32: bytes, tables: dict[str, np.ndarray], *,
-                    fs: int = 48_000, peaks: int = DEFAULT_PEAKS,
-                    accept_legacy_plaintext: bool = False,
-                    device: str | torch.device | None = None
-                    ) -> "BatchVerifier":
-        """A verifier on given numpy tables (e.g. another verifier's)."""
+                    device: str | torch.device | None = None, **options):
+        """A verifier on given numpy tables (e.g. another verifier's).
+
+        ``options`` are the constructor's keywords other than ``max_ctr``,
+        which the tables fix.
+        """
         self = cls.__new__(cls)
         self._setup(SecureChannel(key32), hop_schedule(key32), tables,
-                    fs=fs, peaks=peaks,
-                    accept_legacy_plaintext=accept_legacy_plaintext,
-                    device=resolve_device(device))
+                    resolve_device(device), **options)
         return self
 
-    def _setup(self, sec, hop, tables, *, fs, peaks, accept_legacy_plaintext,
-               device) -> None:
+    def _setup(self, sec, hop, tables, device, *, fs: int = 48_000,
+               peaks: int = DEFAULT_PEAKS,
+               accept_legacy_plaintext: bool = False) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.fs = fs
@@ -303,7 +447,7 @@ class BatchVerifier:
         self.accept_legacy_plaintext = bool(accept_legacy_plaintext)
         self.device = device
         self._spec = polar_spec()
-        self.tables = tables_from_numpy(tables, device)
+        self.tables = tables_from_numpy(tables, device, self._TABLE_DTYPES)
 
     @property
     def max_ctr(self) -> int:
@@ -318,13 +462,16 @@ class BatchVerifier:
         moved to the verifier's device.  ``marks``: see
         ``_batch_verify_stage``.
         """
+        return _batch_verify_stage(*self._inputs(clips, n_valid), self.tables,
+                                   peaks=self.peaks, marks=marks)
+
+    def _inputs(self, clips, n_valid):
+        """(B, T) clips and (B,) lengths as float32 / int32 device tensors."""
         x = torch.as_tensor(clips, dtype=torch.float32, device=self.device)
-        B, T = x.shape
         if n_valid is None:
-            n_valid = np.full(B, T, dtype=np.int32)
-        nv = torch.as_tensor(n_valid, dtype=torch.int32, device=self.device)
-        return _batch_verify_stage(x, nv, self.tables, peaks=self.peaks,
-                                   marks=marks)
+            n_valid = np.full(x.shape[0], x.shape[1], dtype=np.int32)
+        return x, torch.as_tensor(n_valid, dtype=torch.int32,
+                                  device=self.device)
 
     def verify_batch(self, clips, n_valid=None, *,
                      expected_nonce: bytes | None = None,
@@ -417,18 +564,23 @@ class BatchVerifier:
 
     def finish_host_detailed(self, out, *,
                              expected_nonce: bytes | None = None,
-                             details: dict[int, ClipDetail] | None = None):
+                             details: dict[int, ClipDetail] | None = None,
+                             packed: np.ndarray | None = None):
         """(verdicts (B,) bool, nonces (B,) list[bytes|None]).
 
         A serving batch mixes clips from many sessions, so the anti-replay
         policy is the CALLER's: pass ``expected_nonce`` to enforce one
         session across the batch, or consume the returned per-clip nonces
-        and latch per stream upstream.
+        and latch per stream upstream.  ``packed``: the host row, when the
+        caller has already downloaded it.
         """
-        packed = out["host_packed"].cpu().numpy().astype(np.int64)
+        if packed is None:
+            packed = out["host_packed"].cpu().numpy()
+        packed = packed.astype(np.int64)
         ok = packed[:, 0] > 0
         ctrs = ((packed[:, 1] << 24) | (packed[:, 2] << 16)
                 | (packed[:, 3] << 8) | packed[:, 4])
+        # columns past the blob are the v2 evidence bytes (_parse_evidence)
         bw = self._spec.info_len // 8
         blobs = packed[:, 5:5 + bw].astype(np.uint8)
         verdicts = np.zeros(ok.shape[0], dtype=bool)
@@ -502,3 +654,245 @@ class BatchVerifier:
             nonce = plain[8:16]
             out.append(nonce if expected_nonce in (None, nonce) else None)
         return out
+
+
+class RobustBatchVerifier(BatchVerifier):
+    """Batched v2 (robust-profile) verification.
+
+    One device stage covers the whole batch through sync, LS demod (both
+    regularisation profiles), header/counter resolution, LLR and the
+    hard-decision polar pass; ``verify_batch`` then runs the ladder
+    (``_finish_ladder``): futility gate, staged SCL list decode of the
+    failing clips' soft rows on the device, extended counters.
+
+    Shares the counter tables, host finisher and anti-replay hooks with
+    the compat ``BatchVerifier``.  Tables are float32 (``table_dtype`` may
+    only be ``None`` or ``"f32"``); the sync runs in bf16 unless
+    ``sync_dtype="f32"``.  Device rule as for ``BatchVerifier``.
+    """
+
+    _TABLE_DTYPES = V2_TABLE_DTYPES
+
+    # near-start headerless rescue (see _near_start_mask): a clip
+    # escalates when >= MIN_ALIGNED sync peaks share one phase mod the
+    # frame span within +-PHASE_TOL samples and the cluster starts inside
+    # the wide counter window
+    NEAR_START_MIN_ALIGNED = 6
+    NEAR_START_PHASE_TOL = 32
+
+    def __init__(self, key32: bytes, *, fs: int = 48_000,
+                 max_ctr: int = DEFAULT_MAX_CTR, peaks: int = 4,
+                 list_size: int = 32,
+                 profile: WaveformProfile | None = None,
+                 table_dtype: str | None = None,
+                 sync_dtype: str | None = None,
+                 accept_legacy_plaintext: bool = False,
+                 futility_qfloor: float | None = None,
+                 device: str | torch.device | None = None) -> None:
+        if table_dtype not in (None, "f32"):
+            raise ValueError(f"table_dtype={table_dtype!r}: the port stores "
+                             "its v2 tables in float32 only ('f32' or None)")
+        device = resolve_device(device)
+        profile = ROBUST if profile is None else profile
+        sec = SecureChannel(key32)
+        hop = hop_schedule(key32)
+        self._setup(sec, hop, host_tables_v2(sec, hop, fs, max_ctr, profile),
+                    device, fs=fs, peaks=peaks, list_size=list_size,
+                    profile=profile, sync_dtype=sync_dtype,
+                    accept_legacy_plaintext=accept_legacy_plaintext,
+                    futility_qfloor=futility_qfloor)
+
+    def _setup(self, sec, hop, tables, device, *, fs: int = 48_000,
+               peaks: int = 4, list_size: int = 32,
+               profile: WaveformProfile | None = None,
+               sync_dtype: str | None = None,
+               accept_legacy_plaintext: bool = False,
+               futility_qfloor: float | None = None) -> None:
+        super()._setup(sec, hop, tables, device, fs=fs, peaks=peaks,
+                       accept_legacy_plaintext=accept_legacy_plaintext)
+        self.profile = ROBUST if profile is None else profile
+        self.span = self.profile.span
+        self._spec = profile_spec(self.profile)
+        self._list_size = int(list_size)
+        self._sync_dtype = resolve_sync_dtype(sync_dtype)
+        self._futility_qfloor = (float("inf") if futility_qfloor is None
+                                 else float(futility_qfloor))
+        # (rows, list size, n_rows, host seconds) of each SCL rung of the
+        # last _scl_fallback call
+        self.scl_rungs: list[tuple[str, int, int, float]] = []
+
+    # ------------------------------------------------------------------ API
+    def run_device(self, clips, n_valid=None, *,
+                   sync_dtype: str | None = None,
+                   marks: list | None = None) -> dict[str, torch.Tensor]:
+        """Raw v2 stage outputs; ``sync_dtype`` overrides for this call."""
+        return _batch_verify_stage_v2(
+            *self._inputs(clips, n_valid), self.tables, peaks=self.peaks,
+            span=self.span, spec=self._spec,
+            sync_dtype=(self._sync_dtype if sync_dtype is None
+                        else resolve_sync_dtype(sync_dtype)),
+            marks=marks)
+
+    def verify_batch(self, clips, n_valid=None, *,
+                     expected_nonce: bytes | None = None,
+                     use_scl: bool = True,
+                     max_stream_frames: int = 1 << 20,
+                     fs_in: int | None = None,
+                     details: dict[int, ClipDetail] | None = None
+                     ) -> np.ndarray:
+        """(B, T) float32 clips at ``self.fs`` -> (B,) bool verdicts.
+
+        Runs the device stage, then ``_finish_ladder``.  ``fs_in`` other
+        than ``self.fs`` raises ``NotImplementedError``: the device
+        resampler is not ported yet (ROADMAP A8).
+        """
+        if fs_in is not None and int(fs_in) != self.fs:
+            raise NotImplementedError(
+                f"verify_batch(fs_in={fs_in}): the device resampler is not "
+                "ported yet (ROADMAP A8); resample to "
+                f"{self.fs} Hz before the call")
+        out = self.run_device(clips, n_valid)
+        real = (torch.as_tensor(n_valid).cpu().numpy() > 0
+                if n_valid is not None else None)
+        return self._finish_ladder(out, expected_nonce, use_scl,
+                                   max_stream_frames, real=real,
+                                   details=details)
+
+    def _parse_evidence(self, raw: np.ndarray
+                        ) -> tuple[np.ndarray, np.ndarray]:
+        """(any_hdr (B,) bool, q_best (B,) f32) from the packed host row.
+
+        The evidence bytes sit past the ok(1)+ctr(4)+blob row; a row
+        without them (compat width) fails OPEN -- never drop a clip for
+        lack of instrumentation.
+        """
+        row_w = 5 + self._spec.info_len // 8
+        if raw.shape[1] < row_w + 5:
+            n = raw.shape[0]
+            return np.ones(n, bool), np.full(n, np.inf, np.float32)
+        any_hdr = raw[:, row_w] > 0
+        q = np.ascontiguousarray(
+            raw[:, row_w + 1:row_w + 5]).view(np.float32).ravel()
+        return any_hdr, q
+
+    def _near_start_mask(self, out) -> np.ndarray:
+        """Headerless clips whose counters the time estimate can resolve.
+
+        True sync peaks sit on the stream's frame lattice, ``idx = ctr *
+        span + phase``, so the largest cluster of peak phases mod span
+        holds most of the candidate peaks, while noise argmaxes are
+        uniform mod span (P(cluster >= 6 of 16) ~ 6e-7 at tol 32).  A clip
+        escalates when such a cluster exists and it starts inside the
+        wide counter window (``echoseal_tpu/models/pipeline.py``).
+        """
+        span, tol = self.span, self.NEAR_START_PHASE_TOL
+        idx = torch.as_tensor(out["peak_idx"]).cpu().numpy()
+        idx = idx.reshape(idx.shape[0], -1).astype(np.int64)
+        val = torch.as_tensor(out["peak_val"]).cpu().numpy().reshape(idx.shape)
+        valid = np.isfinite(val)
+        ph = idx % span                                     # (B, K)
+        d = np.abs(ph[:, :, None] - ph[:, None, :])
+        d = np.minimum(d, span - d)                         # circular
+        pair_ok = (d <= tol) & valid[:, :, None] & valid[:, None, :]
+        cluster = pair_ok.sum(axis=2)                       # (B, K)
+        anchor = np.argmax(cluster, axis=1)                 # cluster rep
+        in_cluster = np.take_along_axis(
+            pair_ok, anchor[:, None, None], axis=1)[:, 0]   # (B, K)
+        ctr_est = np.rint(idx / span)
+        ctr_min = np.where(in_cluster, ctr_est, np.inf).min(axis=1)
+        return ((cluster.max(axis=1) >= self.NEAR_START_MIN_ALIGNED)
+                & (ctr_min < WIDE_DELTA))
+
+    def _finish_ladder(self, out, expected_nonce, use_scl: bool,
+                       max_stream_frames: int,
+                       real: np.ndarray | None = None,
+                       details: dict[int, ClipDetail] | None = None
+                       ) -> np.ndarray:
+        """Hard verdicts -> futility gate -> staged SCL -> extended ctrs.
+
+        ``real`` masks padding rows (n_valid == 0), which never escalate.
+        The futility gate: a clip with no readable header in any candidate
+        row cannot be rescued (its counter, hence its PN, is unknown), so
+        it skips the ladder, unless ``futility_qfloor`` lets its best soft
+        row's mean |LLR| through or ``_near_start_mask`` finds it cut near
+        the stream start, where the time estimate resolves the counter.
+        """
+        raw = out["host_packed"].cpu().numpy()
+        verdicts, _ = self.finish_host_detailed(
+            out, expected_nonce=expected_nonce, details=details, packed=raw)
+        if real is None:
+            real = np.ones(verdicts.shape, bool)
+        any_hdr, q_best = self._parse_evidence(raw)
+        evidence = any_hdr | (q_best >= self._futility_qfloor)
+        pending_nohdr = real & ~verdicts & ~evidence
+        if use_scl and pending_nohdr.any():
+            evidence |= pending_nohdr & self._near_start_mask(out)
+        pending = real & ~verdicts & evidence
+        if use_scl and pending.any():
+            verdicts |= self._scl_fallback(out, pending, expected_nonce,
+                                           details=details)
+            pending = real & ~verdicts & evidence
+        # the extended-counter pass can only act on readable headers
+        pending &= any_hdr
+        if pending.any():
+            verdicts |= self._extended_counter_pass(
+                out, pending, expected_nonce, max_stream_frames,
+                details=details)
+        return verdicts
+
+    # ----------------------------------------------------------- SCL stage
+    def _scl_fallback(self, out, mask: np.ndarray,
+                      expected_nonce: bytes | None,
+                      details: dict[int, ClipDetail] | None = None
+                      ) -> np.ndarray:
+        """List-decode the exported top-R soft rows of each masked clip.
+
+        Doubly staged, as in the JAX package: rows (each clip's best soft
+        row first, rows 1..R-1 only for the remainder) x list size
+        (``SCL_LADDER`` rungs below the configured list size, then the
+        list size), each rung only on still-failing clips.  The rows stay
+        on the device; per rung the host downloads the CRC flags and the
+        packed bytes of the CRC-passing paths, and opens them in (row,
+        list) order.
+        """
+        self.scl_rungs = []
+        rescued = np.zeros(mask.shape[0], dtype=bool)
+        clips_f = np.flatnonzero(mask)
+        if clips_f.size == 0:
+            return rescued
+        dev = self.device
+        sel = torch.as_tensor(clips_f, device=dev)
+        llr = out["scl_llr"][sel]                           # (F, R, 1024)
+        ctrs = out["scl_ctr"][sel].cpu().numpy()            # (F, R)
+        R = llr.shape[1]
+        ladder = ([L for L in SCL_LADDER if L < self._list_size]
+                  + [self._list_size])
+        pending = np.arange(clips_f.size)
+        for lo, hi in ((0, 1), (1, R)):
+            for lsize in ladder:
+                if pending.size == 0 or lo >= hi:
+                    continue
+                t0 = time.perf_counter()
+                w = hi - lo
+                sub = llr[torch.as_tensor(pending, device=dev), lo:hi]
+                sub_ctr = ctrs[pending, lo:hi].reshape(-1)
+                res = scl_decode(sub.reshape(-1, sub.shape[-1]), self._spec,
+                                 lsize)
+                rr, ll = np.nonzero(res["crc_ok"].cpu().numpy())
+                blobs = _pack_bits(res["info_bits"][
+                    torch.as_tensor(rr, device=dev),
+                    torch.as_tensor(ll, device=dev)]).cpu().numpy()
+                accepted = self._accept_blobs([b.tobytes() for b in blobs],
+                                              sub_ctr[rr], expected_nonce)
+                for r, nonce in zip(rr, accepted):
+                    i = clips_f[pending[r // w]]
+                    if nonce is None or rescued[i]:
+                        continue
+                    rescued[i] = True
+                    if details is not None:
+                        details[int(i)] = ClipDetail(nonce, int(sub_ctr[r]),
+                                                     "scl")
+                self.scl_rungs.append((f"{lo}:{hi}", lsize, len(sub_ctr),
+                                       time.perf_counter() - t0))
+                pending = pending[~rescued[clips_f[pending]]]
+        return rescued

@@ -123,21 +123,36 @@ def slice_windows(x: torch.Tensor, starts: torch.Tensor,
     return win.reshape(*starts.shape, span)
 
 
-def normalized_xcorr(x: torch.Tensor, templates: torch.Tensor) -> torch.Tensor:
+def normalized_xcorr(x: torch.Tensor, templates: torch.Tensor,
+                     compute_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Sliding cosine similarity of ``x`` (..., T) vs (nb, L) templates.
 
     Returns (..., nb, T - L + 1).  Both the template correlation and the
     sliding-window energy are VALID cross-correlations (``conv1d`` does
     not flip its kernel), in float32.
+
+    ``compute_dtype=torch.bfloat16`` reproduces the JAX package's bf16
+    sync: the clip, the templates and x**2 (squared in float32) are
+    rounded to bf16, and the products accumulate in float32.  A bf16
+    ``conv1d`` would round its output to bf16 too, which is another
+    function, so the rounded operands go back to float32 and the conv runs
+    in float32 (TF32 off: the product of two bf16 values is exact there).
     """
     nb, L = templates.shape
     lead = x.shape[:-1]
     xr = x.reshape(-1, 1, x.shape[-1])                  # (N, 1, T)
-    corr = F.conv1d(xr, templates[:, None, :])          # (N, nb, T-L+1)
-    ones = torch.ones((1, 1, L), dtype=x.dtype, device=x.device)
-    e2 = F.conv1d(xr * xr, ones)                        # (N, 1, T-L+1)
+    kern = templates[:, None, :]
+    x2 = xr * xr
+    if compute_dtype is not None:
+        xr, kern, x2 = (t.to(compute_dtype).to(torch.float32)
+                        for t in (xr, kern, x2))
+    corr = F.conv1d(xr, kern)                           # (N, nb, T-L+1)
+    del xr
+    ones = torch.ones((1, 1, L), dtype=x2.dtype, device=x.device)
+    e2 = F.conv1d(x2, ones)                             # (N, 1, T-L+1)
+    del x2
     energy = torch.sqrt(torch.clamp(e2, min=0.0)) + 1e-12
-    return (corr / energy).reshape(*lead, nb, corr.shape[-1])
+    return corr.div_(energy).reshape(*lead, nb, corr.shape[-1])
 
 
 def topk_nms(corr: torch.Tensor, k: int, min_dist: int):
