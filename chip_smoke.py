@@ -37,11 +37,32 @@ line):
 10. SCL-256 (``bench.py`` metric 3): 128 compat-coded payloads through
     sigma 0.3 AWGN, decodes/s at L = 256; the CRC-passing payload sets of
     8 rows on the card and on the CPU must agree;
-11. the same 4 v2 clips through the port on the card and on the CPU.
+11. the same 4 v2 clips through the port on the card and on the CPU;
+12. TX device synthesis at full width: ``BatchEmbedder(KEY).frames_device``
+    for the 4096 counters of phase 4 with the same seeded generator; every
+    frame within 2e-5 of phase 4's host-made frames; frames/s and the
+    real-time factor of chips after a warm-up; 64 clips cut from the
+    device-made stream must all pass the compat verify of phase 4;
+13. 44.1 kHz ingest at full width: B = 1024 cuts of 3.5 s from the phase-7
+    stream, resampled by scipy 147/160 into rows of 169 344 samples,
+    ``verify_batch(cap, nv44, fs_in=44100)``; accept must be 1.0 and the
+    same rows read as 48 kHz must all reject; the ingested rows of 8 clips
+    within 1e-5 relative of ``resample_poly`` in float64; CUDA-event time
+    of the ingest stage and host time of the whole call;
+14. time-scale recovery at full width: the same cuts, each played 3.1 %
+    fast (``time_scale(clip, 1.031)``), in rows of 184 320;
+    ``verify_batch`` must accept none and ``verify_batch_recover`` at least
+    0.95; the scan's and every retry round's time, rows and lattice
+    denominators, kernel launches, peak memory; then 64 clips at mixed
+    seeded factors in {0.953, 0.978, 1.0, 1.031, 1.047}: at least 0.9
+    recovered, and every 1.0 clip accepted without a retry;
+15. 4 of the phase-14 clips through ``verify_batch_recover`` on the card
+    and on the CPU: verdicts and the lattice keys tried per clip agree.
 
 Before the last line it prints ``{"kernels": [...]}``: each kernel at the
-v2 path's shape, with its launches counted over both main paths.  The last
-line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+v2 path's shape, with its launches counted over every main path (each
+path driven with the counts set to 0 just before it).  The last line is
+``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 from __future__ import annotations
 
@@ -72,6 +93,17 @@ KERNEL_TOL = 1e-4
 N_CPU_LADDER = 16             # SCL-ladder clips re-verified on the CPU
 N_SCL256 = 128
 N_CPU_SCL256 = 8
+T35 = int(3.5 * FS)           # clip length of the ingest and recovery phases
+TPAD_44K = 169_344            # 147 * 1152: ingests to exactly TPAD_REC
+TPAD_REC = 184_320            # 160 * 1152 = 4096 * 45
+SCALE = 1.031                 # the time-scale row: played 3.1 % fast
+MIXED_FACTORS = (0.953, 0.978, 1.0, 1.031, 1.047)
+N_MIXED = 64
+N_TX_CLIPS = 64
+TX_TOL = 2e-5
+RESAMPLE_TOL = 1e-5
+RECOVER_GATE = 0.95
+MIXED_GATE = 0.9
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -164,7 +196,11 @@ def kernel_phase(torch, llr, flush):
 
 
 def compat_phases(torch, card):
-    """Phases 4-6; returns the kernel launches of the compat main path."""
+    """Phases 4-6.
+
+    Returns (kernel launches of the compat main path, the verifier, the
+    (4096, 1215) host-made frames of the stream).
+    """
     from echoseal_torch.core.params import FRAME_LEN
     from echoseal_torch.models import pipeline as pl
     from echoseal_torch.models.embedder import frames_np
@@ -182,9 +218,9 @@ def compat_phases(torch, card):
     t0 = time.perf_counter()
     n_frames = -(-T // FRAME_LEN)
     rng = np.random.default_rng(SEED)
-    stream = torch.from_numpy(frames_np(
-        bv.sec, bv._hop, np.arange(STREAM_FRAMES), bytes(8),
-        rng=rng).reshape(-1))
+    host_frames = frames_np(bv.sec, bv._hop, np.arange(STREAM_FRAMES),
+                            bytes(8), rng=rng)
+    stream = torch.from_numpy(host_frames.reshape(-1))
     starts = rng.integers(0, STREAM_FRAMES - n_frames, B) * FRAME_LEN
     scale = 10.0 ** (-35.0 / 20.0)
     clips = torch.zeros(B, TPAD, device="cuda")
@@ -291,7 +327,7 @@ def compat_phases(torch, card):
           "chips_max_abs_diff": float((g["chips"] - c["chips"]).abs().max()),
           "chips_sign_agree": float((g["chips"].sign() == c["chips"].sign())
                                     .float().mean())})
-    return launches["payload_llr"]
+    return launches["payload_llr"], bv, host_frames
 
 
 def _v2_stream(torch, rng, host):
@@ -308,7 +344,11 @@ def _v2_stream(torch, rng, host):
 
 
 def v2_phases(torch, card):
-    """Phases 7-11; returns the kernel launches of the v2 main path."""
+    """Phases 7-11.
+
+    Returns (kernel launches of the v2 main path, the verifier, its CPU
+    twin on the same tables, the phase-7 stream).
+    """
     from echoseal_torch.core.profiles import ROBUST
     from echoseal_torch.models import pipeline as pl
     from echoseal_torch.ops import build, polar, scl
@@ -335,7 +375,7 @@ def v2_phases(torch, card):
     t0 = time.perf_counter()
     host = (0.15 * np.sin(2 * np.pi * 700 * np.arange(STREAM_S_V2 * FS) / FS)
             ).astype(np.float32)
-    _, starts, clips = _v2_stream(torch, rng, host)
+    stream, starts, clips = _v2_stream(torch, rng, host)
     nv = torch.full((B,), T, dtype=torch.int32, device="cuda")
     tx_s = time.perf_counter() - t0
 
@@ -510,7 +550,288 @@ def v2_phases(torch, card):
           "scl_ctr_equal": bool(torch.equal(g["scl_ctr"], c["scl_ctr"])),
           "chips_max_abs_diff": float((g["chips"] - c["chips"]).abs().max()),
           "chips_max_row_rel_diff": float(rel.max())})
+    del rv._scl_fallback                       # the counting wrapper
+    return launches["payload_llr"], rv, cpu, stream
+
+
+def tx_phase(torch, card, bv, host_frames):
+    """Phase 12; returns the kernel launches of its verify."""
+    from echoseal_torch.core.params import FRAME_LEN
+    from echoseal_torch.models.embedder import (
+        BatchEmbedder,
+        synthesize_frames_device,
+    )
+    from echoseal_torch.ops import build, demod
+
+    be = BatchEmbedder(KEY)
+    check(be.device.type == "cuda", f"embedder on {be.device}")
+    ctrs = np.arange(STREAM_FRAMES)
+    frames = be.frames_device(ctrs, bytes(8), rng=np.random.default_rng(SEED))
+    check(frames.is_cuda and frames.shape == (STREAM_FRAMES, FRAME_LEN)
+          and frames.dtype == torch.float32, "frames_device output")
+    err = float((frames.cpu() - torch.from_numpy(host_frames)).abs().max())
+    check(err <= TX_TOL, f"device frames differ from frames_np by {err}")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        be.frames_device(ctrs, bytes(8), rng=np.random.default_rng(SEED))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    # the device part alone, on the inputs of a 4096-frame call
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def bits(*shape):
+        return torch.randint(0, 2, shape, device="cuda", generator=gen,
+                             dtype=torch.uint8)
+    dev_args = (bits(STREAM_FRAMES, 440), bits(STREAM_FRAMES, 128),
+                bits(STREAM_FRAMES, 1024), be._hdr_pn_sy, be._preamble_sy,
+                torch.from_numpy(be._hop.indices(ctrs)).cuda(), be._t_fwd)
+    dev_ms = cuda_ms(lambda: synthesize_frames_device(*dev_args), torch, n=10)
+
+    n_frames = -(-T // FRAME_LEN)
+    rng = np.random.default_rng(SEED + 4)
+    starts = rng.integers(0, STREAM_FRAMES - n_frames, N_TX_CLIPS) * FRAME_LEN
+    clips = torch.zeros(N_TX_CLIPS, TPAD, device="cuda")
+    clips[:, :T] = demod.slice_windows(
+        frames.reshape(-1), torch.from_numpy(starts).cuda(), T) \
+        * 10.0 ** (-35.0 / 20.0)
+    nv = torch.full((N_TX_CLIPS,), T, dtype=torch.int32, device="cuda")
+    build.LAUNCHES.clear()
+    verdicts = bv.verify_batch(clips, nv)
+    launches = dict(build.LAUNCHES)
+    check(verdicts.all(), f"device-made TX: rejected clips "
+                          f"{np.flatnonzero(~verdicts).tolist()}")
+    check(launches.get("payload_llr", 0) > 0,
+          "payload_llr never launched on the device-TX verify")
+    chips_s = STREAM_FRAMES * FRAME_LEN / FS
+    emit({"phase": "tx_device", "card": card, "frames": STREAM_FRAMES,
+          "max_abs_err_vs_frames_np": err, "tol": TX_TOL,
+          "frames_device_s": min(times), "runs_s": times,
+          "frames_per_s": STREAM_FRAMES / min(times),
+          "chips_rtf": chips_s / min(times),
+          "device_part_ms": dev_ms,
+          "verify_clips": N_TX_CLIPS, "verify_accept": float(verdicts.mean()),
+          "launches": launches})
     return launches["payload_llr"]
+
+
+def _spy_retries(verifier):
+    """Record {clip: lattice key} of each ``_retry_scaled`` call; returns
+    (the list it fills, a function that removes the spy)."""
+    calls = []
+    orig = verifier._retry_scaled
+
+    def spy(clips, n_valid, factors, *a, **k):
+        q = verifier.RETRY_UP if k.get("clips_dev") is not None \
+            else verifier.fs
+        calls.append({int(i): int(round(q * f)) for i, f in factors.items()})
+        return orig(clips, n_valid, factors, *a, **k)
+
+    verifier._retry_scaled = spy
+
+    def remove():
+        del verifier._retry_scaled
+    return calls, remove
+
+
+def recover_phases(torch, card, rv, cpu, stream):
+    """Phases 13-15; returns the kernel launches of the ingest path and of
+    the recovery path."""
+    from scipy.signal import resample_poly
+
+    from echoseal_torch.ops import build
+    from echoseal_torch.utils.channels import time_scale
+
+    rng = np.random.default_rng(SEED + 5)
+    starts = rng.integers(0, stream.size - T35, B)
+    base = np.stack([stream[s:s + T35] for s in starts])      # (B, T35)
+
+    # ---- 13. 44.1 kHz ingest at full width -----------------------------------
+    t0 = time.perf_counter()
+    t44 = T35 * 147 // 160
+    y44 = resample_poly(base.astype(np.float64), 147, 160,
+                        axis=-1).astype(np.float32)
+    cap_np = np.zeros((B, TPAD_44K), np.float32)
+    cap_np[:, :min(y44.shape[1], TPAD_44K)] = y44[:, :TPAD_44K]
+    del y44
+    cap = torch.from_numpy(cap_np).cuda()
+    nv44 = np.full(B, t44, np.int32)
+    prep_s = time.perf_counter() - t0
+
+    y8, nv8 = rv._ingest(cap[:8], nv44[:8], 44_100)
+    ref8 = resample_poly(cap_np[:8].astype(np.float64), 160, 147, axis=-1)
+    n_out = ref8.shape[1]
+    check(y8.shape[1] >= n_out == TPAD_REC, f"ingest width {tuple(y8.shape)}")
+    rs_err = float(np.abs(y8[:, :n_out].cpu().numpy() - ref8).max()
+                   / np.abs(ref8).max())
+    check(rs_err <= RESAMPLE_TOL, f"device resampler vs scipy: {rs_err}")
+    check(y8.shape[1] == n_out or float(y8[:, n_out:].abs().max()) == 0.0,
+          "ingest tail past n_out is not zero")
+    check(nv8.tolist() == [t44 * 160 // 147] * 8, f"ingest lengths {nv8}")
+    del y8
+
+    as_48k = rv.verify_batch(cap, nv44)
+    check(not as_48k.any(),
+          f"{int(as_48k.sum())} 44.1 kHz rows accepted when read as 48 kHz")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    details = {}
+    verdicts = rv.verify_batch(cap, nv44, fs_in=44_100, details=details)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches_ingest = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    accept = float(verdicts.mean())
+    check(accept == 1.0,
+          f"44.1 kHz accept rate {accept}: rejected clips "
+          f"{np.flatnonzero(~verdicts).tolist()}")
+    check(launches_ingest.get("payload_llr", 0) > 0,
+          "payload_llr never launched on the ingest path")
+    ingest_ms = cuda_ms(lambda: rv._ingest(cap, nv44, 44_100), torch, n=3)
+    calls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = rv.verify_batch(cap, nv44, fs_in=44_100)
+        calls.append(time.perf_counter() - t0)
+        check(v.all(), "timed 44.1 kHz run rejected clips")
+    fam = (160, 147, 147, TPAD_44K)
+    check(fam in rv._resamplers, f"ingest resampler {list(rv._resamplers)}")
+    k_taps = rv._resamplers[fam].k_taps
+    emit({"phase": "ingest_44k1", "card": card, "B": B, "clip_s": 3.5,
+          "t_in": TPAD_44K, "t_out": TPAD_REC, "accept": accept,
+          "accept_stages": {s: sum(d.stage == s for d in details.values())
+                            for s in ("hard", "scl", "ext_ctr")},
+          "accepted_read_as_48k": int(as_48k.sum()),
+          "resampler_rel_err_8_rows": rs_err, "tol": RESAMPLE_TOL,
+          "k_taps": k_taps, "ingest_ms": ingest_ms,
+          # per tap: the gather reads and writes a (B, t_out) fp32 array,
+          # the accumulate reads two and writes one
+          "ingest_gb_moved": 5 * 4 * B * TPAD_REC * k_taps / 1e9,
+          # the function's own floor: the input read once, the output
+          # written once, at the card's memory rate
+          "ingest_bound_ms": 4 * B * (TPAD_44K + TPAD_REC)
+          / HBM_BYTES_PER_S * 1e3,
+          "first_call_s": first_s, "call_s": min(calls), "runs_s": calls,
+          "audio_s_per_s": B * t44 / 44_100 / min(calls),
+          "launches": launches_ingest, "peak_mem_gb": peak_gb,
+          "host_prep_s": prep_s})
+    del cap, cap_np
+
+    # ---- 14. time-scale recovery at full width --------------------------------
+    t0 = time.perf_counter()
+    scaled_np = np.zeros((B, TPAD_REC), np.float32)
+    nvs = np.zeros(B, np.int32)
+    for i in range(B):
+        y = time_scale(base[i], SCALE)
+        L = min(y.size, TPAD_REC)
+        scaled_np[i, :L] = y[:L]
+        nvs[i] = L
+    scaled = torch.from_numpy(scaled_np).cuda()
+    prep_s = time.perf_counter() - t0
+    plain = rv.verify_batch(scaled, nvs)
+    check(not plain.any(),
+          f"{int(plain.sum())} time-scaled clips accepted without recovery")
+    keys, unspy = _spy_retries(rv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rec = rv.verify_batch_recover(scaled, nvs)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    launches_rec = dict(build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log = rv.recover_log
+    accept = float(rec.mean())
+    rounds = [dict(r, dens=len(r["dens"])) for r in log["rounds"]]
+    all_dens = sorted({d for r in log["rounds"] for d in r["dens"]})
+    # again, with the scan bank and every resampler plan now cached
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec2 = rv.verify_batch_recover(scaled, nvs)
+    rec2_s = time.perf_counter() - t0
+    check(rec2.tolist() == rec.tolist(), "second recovery call differs")
+    log2 = rv.recover_log
+    line = {"phase": "timescale_recover", "card": card, "B": B, "clip_s": 3.5,
+            "factor": SCALE, "Tpad": TPAD_REC, "accept_plain": float(plain.mean()),
+            "accept": accept, "gate": RECOVER_GATE, "seconds": rec_s,
+            "audio_s_per_s": B * 3.5 / rec_s,
+            "first_pass_s": log["first_pass_s"], "bank_s": log["bank_s"],
+            "scan_s": log["scan_s"], "scan_rows": log["scan_rows"],
+            "deferred_s": log["deferred_s"],
+            "rounds_run": len(rounds), "rounds": rounds,
+            "distinct_dens": len(all_dens),
+            "first_round_keys": sorted(set(keys[0].values())) if keys else [],
+            "second_call": {
+                "seconds": rec2_s, "first_pass_s": log2["first_pass_s"],
+                "scan_s": log2["scan_s"], "deferred_s": log2["deferred_s"],
+                "rounds_s": [r["s"] for r in log2["rounds"]],
+                "plan_s": sum(r["plan_s"] for r in log2["rounds"]),
+                "scl_s": sum(r["scl_s"] for r in log2["rounds"])},
+            "launches": launches_rec, "peak_mem_gb": peak_gb,
+            "rejected": np.flatnonzero(~rec).tolist(), "host_prep_s": prep_s}
+    emit(line)
+    check(accept >= RECOVER_GATE, f"recovery accept {accept} < {RECOVER_GATE}")
+    # one launch per run_device (the first pass and each retry round), and
+    # one per extended-counter pass that the ladders reach
+    check(launches_rec.get("payload_llr", 0) >= 1 + len(rounds),
+          f"payload_llr launches {launches_rec} vs 1 + {len(rounds)} rounds")
+    check(sum(r["host_rows"] for r in rounds) == 0,
+          "a +-5 % factor left the device resampler family")
+
+    mix_f = np.asarray(MIXED_FACTORS)[rng.integers(0, len(MIXED_FACTORS),
+                                                   N_MIXED)]
+    mixed = np.zeros((N_MIXED, TPAD_REC), np.float32)
+    nvm = np.zeros(N_MIXED, np.int32)
+    for i, f in enumerate(mix_f):
+        y = base[i] if f == 1.0 else time_scale(base[i], float(f))
+        L = min(y.size, TPAD_REC)
+        mixed[i, :L] = y[:L]
+        nvm[i] = L
+    is_one = mix_f == 1.0
+    keys.clear()
+    mixed_dev = torch.from_numpy(mixed).cuda()
+    v_plain = rv.verify_batch(mixed_dev, nvm)
+    t0 = time.perf_counter()
+    v_mix = rv.verify_batch_recover(mixed_dev, nvm)
+    mix_s = time.perf_counter() - t0
+    retried = {i for r in keys for i, k in r.items() if k != rv.RETRY_UP}
+    per_factor = {str(f): [int(v_mix[mix_f == f].sum()), int((mix_f == f).sum())]
+                  for f in MIXED_FACTORS}
+    emit({"phase": "timescale_mixed", "clips": N_MIXED,
+          "factors": list(MIXED_FACTORS), "accept": float(v_mix.mean()),
+          "gate": MIXED_GATE, "accepted_of_per_factor": per_factor,
+          "unscaled_retried": sorted(int(i) for i in retried
+                                     if is_one[i]),
+          "seconds": mix_s, "rounds_run": len(rv.recover_log["rounds"])})
+    check(v_mix.mean() >= MIXED_GATE, f"mixed recovery {v_mix.mean()}")
+    check(is_one.any() and v_mix[is_one].all() and v_plain[is_one].all(),
+          "an unscaled clip of the mixed batch was rejected")
+    check(not v_plain[~is_one].any(), "a scaled clip verified unrecovered")
+    del mixed_dev
+
+    # ---- 15. recovery on the card vs on the CPU --------------------------------
+    keys.clear()
+    v_g = rv.verify_batch_recover(scaled[:4], nvs[:4])
+    keys_g = list(keys)
+    unspy()
+    keys_c, unspy_c = _spy_retries(cpu)
+    t0 = time.perf_counter()
+    v_c = cpu.verify_batch_recover(scaled_np[:4], nvs[:4])
+    cpu_s = time.perf_counter() - t0
+    unspy_c()
+    check(v_g.tolist() == v_c.tolist(),
+          f"recovery verdicts card {v_g.tolist()} cpu {v_c.tolist()}")
+    check(keys_g == keys_c, f"tried keys card {keys_g} cpu {keys_c}")
+    emit({"phase": "recover_gpu_vs_cpu", "clips": 4,
+          "verdicts": v_g.tolist(), "verdicts_equal": True,
+          "equal_to_full_batch": v_g.tolist() == rec[:4].tolist(),
+          "tried_keys": keys_g, "tried_keys_equal": True, "cpu_s": cpu_s})
+    return launches_ingest["payload_llr"], launches_rec["payload_llr"]
 
 
 def main() -> None:
@@ -546,9 +867,15 @@ def main() -> None:
     max_err, entry = kernel_phase(torch, llr, flush)
     del flush
 
-    launches = compat_phases(torch, card)
-    launches += v2_phases(torch, card)
-    entry["launches"] = launches
+    by_path = {}
+    by_path["compat"], bv, host_frames = compat_phases(torch, card)
+    by_path["v2"], rv, cpu, stream = v2_phases(torch, card)
+    by_path["tx_device_verify"] = tx_phase(torch, card, bv, host_frames)
+    del bv, host_frames
+    by_path["ingest_44k1"], by_path["timescale_recover"] = recover_phases(
+        torch, card, rv, cpu, stream)
+    entry["launches"] = sum(by_path.values())
+    entry["launches_by_path"] = by_path
     entry["max_abs_err"] = max_err
     print(json.dumps({"kernels": [entry]}), flush=True)
 

@@ -40,6 +40,11 @@ V2_TABLE_DTYPES = {
     "hop_table": torch.int32,     # (max_ctr,) band index per counter
 }
 
+# built on the first time-scale recovery, outside the verifier's ``tables``
+SCAN_TABLE_DTYPES = {
+    "scan_bank": torch.float32,   # (31 * 4, ~531) scaled sync templates
+}
+
 
 def tables_from_numpy(d: dict[str, np.ndarray], device: str | torch.device,
                       dtypes: dict[str, torch.dtype] = TABLE_DTYPES

@@ -22,6 +22,10 @@ against both lam profiles (no refinement), the standard polar info set,
 and a ladder after the hard pass -- futility gate, staged SCL list decode
 of each failing clip's top-4 soft rows, extended counters.  The soft rows
 stay on the device; the host downloads only what it opens.
+``verify_batch(fs_in=...)`` converts a capture's rate on the device first
+(``ops/resample.py``), and ``verify_batch_recover`` adds the batched +-5%
+playback-speed recovery: scaled-template scan, device resample per
+recovered factor, re-verify, chained refinement.
 
 Device rule: ``device=None`` means CUDA; without a card the verifiers
 raise unless the caller passes ``device="cpu"``.  Precision rule: every
@@ -34,11 +38,13 @@ from __future__ import annotations
 
 import time
 import typing
+from math import gcd
 
 import numpy as np
 import torch
 
 from echoseal_torch.convert import (
+    SCAN_TABLE_DTYPES,
     TABLE_DTYPES,
     V2_TABLE_DTYPES,
     tables_from_numpy,
@@ -49,6 +55,7 @@ from echoseal_torch.core.device import resolve_device
 from echoseal_torch.core.params import FRAME_LEN, HDR_L, MAGIC, PRE_L, WIDE_DELTA
 from echoseal_torch.core.profiles import ROBUST, WaveformProfile, profile_spec
 from echoseal_torch.core.sequences import bits_to_bpsk, mls63
+from echoseal_torch.models import robust
 from echoseal_torch.models.robust import (
     LAM_PROFILES,
     robust_demod_matrix,
@@ -57,6 +64,7 @@ from echoseal_torch.models.robust import (
 from echoseal_torch.ops import demod
 from echoseal_torch.ops.llr import payload_llr
 from echoseal_torch.ops.polar import PolarSpec, hard_decode_batch, polar_spec
+from echoseal_torch.ops.resample import DeviceResampler
 from echoseal_torch.ops.scl import scl_decode
 
 DEFAULT_MAX_CTR = 16_384     # ~7 min of stream @ 39.5 frames/s
@@ -399,6 +407,19 @@ def _batch_verify_stage_v2(x: torch.Tensor, n_valid: torch.Tensor,
                 chips=chips)      # (B, 4, NP, K, 1215) -- extended pass
 
 
+def _lengths_np(n_valid, clips) -> np.ndarray:
+    """(B,) int32 numpy lengths; the full width when ``n_valid`` is None."""
+    if n_valid is None:
+        return np.full(clips.shape[0], clips.shape[-1], dtype=np.int32)
+    return np.asarray(torch.as_tensor(n_valid).cpu()).astype(np.int32)
+
+
+def _valid_peaks(out) -> np.ndarray:
+    """(B, 4, P) peak positions on the host, -1 where the peak is invalid."""
+    return torch.where(torch.isfinite(out["peak_val"]), out["peak_idx"],
+                       -1).cpu().numpy()
+
+
 class BatchVerifier:
     """High-throughput multi-clip verifier (one device stage per batch).
 
@@ -679,6 +700,8 @@ class RobustBatchVerifier(BatchVerifier):
     # the wide counter window
     NEAR_START_MIN_ALIGNED = 6
     NEAR_START_PHASE_TOL = 32
+    # clips per scale-scan dispatch of verify_batch_recover
+    SCAN_CHUNK = 128
 
     def __init__(self, key32: bytes, *, fs: int = 48_000,
                  max_ctr: int = DEFAULT_MAX_CTR, peaks: int = 4,
@@ -720,6 +743,14 @@ class RobustBatchVerifier(BatchVerifier):
         # (rows, list size, n_rows, host seconds) of each SCL rung of the
         # last _scl_fallback call
         self.scl_rungs: list[tuple[str, int, int, float]] = []
+        self._resamplers: dict[tuple, DeviceResampler] = {}
+        self._scan_bank: torch.Tensor | None = None
+        # what the last verify_batch_recover did, in host seconds:
+        # "first_pass_s", "bank_s" (building the scan bank, first time
+        # only), "scan_rows", "scan_s", "deferred_s", and per dispatched
+        # retry round {"rows", "host_rows", "dens", "accepted", "s",
+        # "plan_s" (resampler FIR designs), "scl_s" (its SCL rungs)}
+        self.recover_log: dict = {"rounds": []}
 
     # ------------------------------------------------------------------ API
     def run_device(self, clips, n_valid=None, *,
@@ -740,23 +771,54 @@ class RobustBatchVerifier(BatchVerifier):
                      fs_in: int | None = None,
                      details: dict[int, ClipDetail] | None = None
                      ) -> np.ndarray:
-        """(B, T) float32 clips at ``self.fs`` -> (B,) bool verdicts.
+        """(B, T) float32 clips -> (B,) bool verdicts; ``fs_in`` for captures
+        at another rate than ``self.fs``.
 
-        Runs the device stage, then ``_finish_ladder``.  ``fs_in`` other
-        than ``self.fs`` raises ``NotImplementedError``: the device
-        resampler is not ported yet (ROADMAP A8).
+        Runs the device stage, then ``_finish_ladder``.  With ``fs_in``
+        (e.g. 44100) the batch is rate-converted on the device first
+        (``_ingest``), the batch-tier equivalent of a host ``resample_to``
+        per clip; ``n_valid`` is then given in INPUT samples.
         """
         if fs_in is not None and int(fs_in) != self.fs:
-            raise NotImplementedError(
-                f"verify_batch(fs_in={fs_in}): the device resampler is not "
-                "ported yet (ROADMAP A8); resample to "
-                f"{self.fs} Hz before the call")
+            clips, n_valid = self._ingest(
+                clips, _lengths_np(n_valid, clips), int(fs_in))
         out = self.run_device(clips, n_valid)
-        real = (torch.as_tensor(n_valid).cpu().numpy() > 0
+        real = (_lengths_np(n_valid, clips) > 0
                 if n_valid is not None else None)
         return self._finish_ladder(out, expected_nonce, use_scl,
                                    max_stream_frames, real=real,
                                    details=details)
+
+    def _resampler(self, up: int, down_min: int, down_max: int,
+                   t_in: int) -> DeviceResampler:
+        """The verifier's cached ``DeviceResampler`` for one family."""
+        fam = (up, down_min, down_max, t_in)
+        rs = self._resamplers.get(fam)
+        if rs is None:
+            rs = DeviceResampler(*fam, device=self.device)
+            self._resamplers[fam] = rs
+        return rs
+
+    def _ingest(self, clips, n_valid: np.ndarray, fs_in: int):
+        """Device rate conversion ``fs_in`` -> ``self.fs`` for a batch.
+
+        Returns (the converted clips, a tensor as wide as the resampler's
+        block lattice and exactly zero past each row's converted length,
+        the converted lengths as int32 numpy).  Every later stage masks by
+        the lengths, so the zero tail is inert.
+        """
+        g = gcd(self.fs, fs_in)
+        up, down = self.fs // g, fs_in // g
+        # decimating ratios reduce to tiny lattices (96 kHz -> up=1,
+        # down=2) whose per-block overhang would dwarf the stride: scale
+        # the lattice so each block yields >= 128 outputs
+        m = -(-128 // up)
+        up, down = up * m, down * m
+        x = torch.as_tensor(clips, dtype=torch.float32, device=self.device)
+        y, n_out = self._resampler(up, down, down, int(x.shape[-1]))(x, down)
+        nv = np.minimum(np.asarray(n_valid).astype(np.int64) * up // down,
+                        n_out).astype(np.int32)
+        return y, nv
 
     def _parse_evidence(self, raw: np.ndarray
                         ) -> tuple[np.ndarray, np.ndarray]:
@@ -838,6 +900,339 @@ class RobustBatchVerifier(BatchVerifier):
             verdicts |= self._extended_counter_pass(
                 out, pending, expected_nonce, max_stream_frames,
                 details=details)
+        return verdicts
+
+    # ------------------------------------------------- time-scale recovery
+    def verify_batch_recover(self, clips, n_valid=None, *,
+                             expected_nonce: bytes | None = None,
+                             fs_in: int | None = None) -> np.ndarray:
+        """``verify_batch`` plus batched +-5% playback-speed recovery.
+
+        Clips the plain pass misses get a sync-only scaled-template scan
+        (failing rows gathered on the device from the clip batch, scanned
+        in chunks of <= 128 clips), are resampled per recovered factor on
+        the device (one pass per distinct factor on the ``RETRY_UP``
+        lattice), re-verified in one stage, and still-failing clips get
+        chained inter-peak-spacing refinement, fallback factors and
+        lattice neighbours for up to four more rounds (``_retry_scaled``).
+
+        ``fs_in`` composes the device ingest conversion with recovery: the
+        scan and retries run on the ingested batch at ``self.fs``; the
+        host resample path (factor groups outside the device family's
+        +-5%) corrects straight from the original-rate host clips in ONE
+        polyphase pass (up = fs, down = round(fs_in * factor)).
+
+        ``clips`` may be a ``torch.Tensor`` already on the verifier's
+        device: then nothing is uploaded, and host bytes are materialised
+        (one download) only if some recovered factor falls outside the
+        device family, which the scan grid never produces on its own.
+        """
+        dev_in = isinstance(clips, torch.Tensor)
+        if not dev_in:
+            clips = np.asarray(clips, dtype=np.float32)
+        n_valid = _lengths_np(n_valid, clips)
+        clips_host = None if dev_in else clips
+        nv_host = n_valid
+        fs_host = self.fs if fs_in is None else int(fs_in)
+        if fs_in is not None and int(fs_in) != self.fs:
+            clips_dev, n_valid = self._ingest(clips, n_valid, int(fs_in))
+        else:
+            clips_dev = torch.as_tensor(clips, dtype=torch.float32,
+                                        device=self.device)
+        log = self.recover_log = {"first_pass_s": 0.0, "bank_s": 0.0,
+                                  "scan_rows": 0, "scan_s": 0.0,
+                                  "deferred_s": 0.0, "rounds": []}
+        t0 = time.perf_counter()
+        out = self.run_device(clips_dev, n_valid)
+        real = n_valid > 0
+        # hard verdicts ONLY here: on a time-scaled batch every clip fails
+        # the hard pass AND cannot SCL-decode (the chip timing is off), so
+        # the full ladder would burn list decodes before the scan even
+        # ran.  Escalation moves BEHIND the scan: recovered clips get the
+        # full ladder inside the retry re-verify; clips the scan could
+        # not place (or whose retry failed) get the deferred escalation
+        # against these SAME device outputs below -- verdict-identical,
+        # rescue is a disjunction over attempts.
+        verdicts = self._finish_ladder(out, expected_nonce, False, 0,
+                                       real=real)
+        fail = np.flatnonzero(real & ~verdicts)
+        log["first_pass_s"] = time.perf_counter() - t0
+        if fail.size == 0:
+            return verdicts
+
+        t0 = time.perf_counter()
+        if self._scan_bank is None:
+            self._scan_bank = tables_from_numpy(
+                {"scan_bank": robust.scaled_template_bank(
+                    self.fs, self.profile.oversample)},
+                self.device, SCAN_TABLE_DTYPES)["scan_bank"]
+            log["bank_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nv_dev = torch.as_tensor(n_valid, device=self.device)
+        score_parts = []
+        for c0 in range(0, fail.size, self.SCAN_CHUNK):
+            idx = torch.as_tensor(fail[c0:c0 + self.SCAN_CHUNK],
+                                  device=self.device)
+            score_parts.append(robust._scale_scan_batch(
+                clips_dev[idx], nv_dev[idx], self._scan_bank))
+        scores = np.concatenate(
+            [np.asarray(torch.as_tensor(p).cpu()) for p in score_parts])
+        log.update(scan_rows=int(fail.size), scan_s=time.perf_counter() - t0)
+
+        grid = np.asarray(robust.SCALE_SCAN_GRID)
+        per = scores.reshape(fail.size, grid.size, 4).max(axis=2)
+        f = grid[np.argmax(per, axis=1)]
+        # NO evidence gate here: a retry row in the batched re-verify is
+        # nearly free, while a gated-out scaled clip is lost for good.  A
+        # junk factor cannot false-accept (AEAD) and the deferred
+        # escalation below still covers the un-scaled failure modes.
+        # Clips whose scan argmax is the identity get the inter-peak-
+        # spacing estimate from the ORIGINAL device outputs instead:
+        # sub-grid residuals show up there, not in the 0.33%-step scan.
+        peaks0 = _valid_peaks(out)
+        factors: dict[int, float] = {}
+        for pos, i in enumerate(fail):
+            cand = float(f[pos])
+            if abs(cand - 1.0) <= 1e-4:
+                fine = robust.estimate_timescale_from_peaks(peaks0[i],
+                                                            self.span)
+                if fine is None or abs(fine - 1.0) <= robust.FINE_CHAIN_MIN:
+                    continue
+                cand = float(fine)
+            factors[int(i)] = cand
+        # Fallback candidate queue, consumed by the refinement rounds when
+        # a failed retry yields no peak-spacing estimate: the scan's known
+        # aliasing mode is the RECIPROCAL basin (a template stretched by r
+        # also part-correlates against a clip stretched by r); the retry
+        # at the wrong factor shows no peaks and the refiner abstains.
+        # Queue per clip: the reciprocal of the primary, then the
+        # second-best scan factor OUTSIDE the primary's basin.
+        order = np.argsort(per, axis=1)[:, ::-1]
+        fallback: dict[int, list[float]] = {}
+        for pos, i in enumerate(fail):
+            f1 = factors.get(int(i))
+            if f1 is None:      # scan says unscaled: deferred escalation
+                continue        # covers it; no retry rows to feed
+            alts: list[float] = []
+            r = 1.0 / f1
+            if 0.95 <= r <= 1.05 and abs(r - f1) > 1e-4:
+                alts.append(float(r))
+            for j in order[pos][1:]:
+                f2 = float(grid[j])
+                if (abs(f2 - 1.0) > 1e-4 and abs(f2 - f1) > 0.0034
+                        and all(abs(f2 - a) > 1e-3 for a in alts)):
+                    alts.append(f2)
+                    break
+            if alts:
+                fallback[int(i)] = alts
+        # depth 4: a clip whose correct-basin factor is only reached by
+        # the fallback queue still needs a round for its sub-lattice
+        # residual; rounds with no candidates cost nothing
+        verdicts = self._retry_scaled(clips_host, nv_host, factors, verdicts,
+                                      expected_nonce, refine=4,
+                                      clips_dev=clips_dev, nv_dev=n_valid,
+                                      fs_host=fs_host, fallback=fallback)
+        left = real & ~verdicts
+        if left.any():          # the deferred escalation
+            t0 = time.perf_counter()
+            verdicts |= self._finish_ladder(out, expected_nonce, True,
+                                            1 << 20, real=left)
+            log["deferred_s"] = time.perf_counter() - t0
+        return verdicts
+
+    # retry-lattice denominator: factors quantize to RETRY_UP-lattice
+    # rationals (granularity 1/RETRY_UP = 8.3e-5, ~2.4x inside the demod's
+    # ~2e-4 coherence budget).  12000, not fs=48000: the per-factor tap
+    # table scales with ``up`` (1.2 MB vs 4.6 MB), the 31 scan-grid
+    # factors are exact on both lattices with IDENTICAL reduced ratios
+    # (gcd collapses them, so resample_poly outputs are equal), and the
+    # coarser lattice clusters per-clip refinement estimates onto shared
+    # denominators (one resample pass serves the cluster).
+    RETRY_UP = 12_000
+
+    def _device_resampler(self, t_in: int) -> DeviceResampler:
+        """The +-5% device resampler family for ``t_in``-wide clips."""
+        return self._resampler(self.RETRY_UP, int(self.RETRY_UP * 0.95),
+                               int(self.RETRY_UP * 1.05), t_in)
+
+    def _retry_scaled(self, clips, n_valid, factors: dict[int, float],
+                      verdicts: np.ndarray, expected_nonce: bytes | None,
+                      refine: int, clips_dev=None, nv_dev=None,
+                      fs_host: int | None = None,
+                      fallback: dict[int, list[float]] | None = None,
+                      tried: dict[int, set] | None = None) -> np.ndarray:
+        """Group-resample ``factors`` clips, re-verify, optionally refine.
+
+        With ``clips_dev`` (the clip batch on the device) the correction
+        resamples there (``ops/resample.py``) on the ``RETRY_UP`` lattice,
+        so both the coarse grid factors and the peak-spacing refinements
+        stay on the device; the host ``resample_poly`` path remains for
+        factor groups outside the +-5% family and for callers without a
+        device batch, and computes the identical rational correction.
+        ``tried`` collects, per clip, the lattice keys attempted.
+        """
+        from scipy.signal import resample_poly
+
+        if not factors:
+            return verdicts
+        t_round = time.perf_counter()
+        # the retry batch lives on the device timeline at self.fs; the
+        # host clips may be at another capture rate (fs_host, from the
+        # verify_batch_recover(fs_in=...) ingest composition)
+        fs_host = self.fs if fs_host is None else int(fs_host)
+        nv_dev = n_valid if nv_dev is None else np.asarray(nv_dev, np.int32)
+        Tpad = (clips_dev.shape[1] if clips_dev is not None
+                else clips.shape[1])
+        # group by RETRY_UP-lattice denominator, not raw float factor:
+        # per-clip refinement estimates that quantize to the same den
+        # must share one resample pass (and one cached tap table)
+        q = self.RETRY_UP if clips_dev is not None else self.fs
+        tried = {} if tried is None else tried
+        groups: dict[int, list[int]] = {}
+        rep_f: dict[int, float] = {}
+        for i, f in factors.items():
+            key = int(round(q * f))
+            tried.setdefault(i, set()).add(key)
+            groups.setdefault(key, []).append(i)
+            rep_f.setdefault(key, float(f))
+
+        # device rows are concatenated ahead of host rows, so bookkeeping
+        # (sel / nv2) is kept in matching (device, host) halves
+        sel_d: list[int] = []
+        sel_h: list[int] = []
+        rows: list[np.ndarray] = []
+        dev_rows: list[torch.Tensor] = []
+        nv2_d: list[int] = []
+        nv2_h: list[int] = []
+        dens: list[int] = []
+        rs = self._device_resampler(Tpad) if clips_dev is not None else None
+        plan_s0 = rs.plan_s if rs is not None else 0.0
+        for den, members in groups.items():
+            # the group key IS the denominator on the ``q`` lattice
+            # (q == rs.up when a device batch exists, else self.fs)
+            if rs is not None and den == rs.up:
+                continue    # identity: re-verifying the same clip is a
+                            # no-op and the resampler rejects factor 1.0
+            dens.append(den)
+            if rs is not None and rs.down_min <= den <= rs.down_max:
+                midx = torch.as_tensor(members, device=self.device)
+                y, n_out = rs(clips_dev[midx], den)
+                dev_rows.append(y[:, :Tpad])
+                L = min(n_out, Tpad)
+                sel_d.extend(members)
+                nv2_d.extend(min(int(int(nv_dev[i]) * rs.up / den), L)
+                             for i in members)
+            else:
+                # straight from the original-rate host clips: the rate
+                # conversion and the speed correction compose into ONE
+                # rational polyphase pass (up=fs, down=fs_host*factor)
+                if clips is None:
+                    # device-resident caller: materialise host bytes once
+                    # (only out-of-family factors reach this branch).  The
+                    # rows live on the INGESTED device timeline at
+                    # self.fs, not at the fs_host capture rate -- rebase
+                    # the host-path rate and lengths, or a 44.1 kHz fs_in
+                    # caller gets a spurious ~8.8% extra speed shift here.
+                    clips = clips_dev.cpu().numpy()
+                    fs_host = self.fs
+                    n_valid = nv_dev
+                den_h = int(round(fs_host * rep_f[den]))
+                g = gcd(self.fs, den_h)
+                y = resample_poly(clips[members], self.fs // g, den_h // g,
+                                  axis=-1).astype(np.float32)
+                L = min(y.shape[1], Tpad)
+                for r in range(len(members)):
+                    row = np.zeros(Tpad, np.float32)
+                    row[:L] = y[r, :L]
+                    rows.append(row)
+                sel_h.extend(members)
+                nv2_h.extend(min(int(int(n_valid[i]) * self.fs / den_h), L)
+                             for i in members)
+        sel = sel_d + sel_h
+        if not sel:                 # every group was the lattice identity
+            return verdicts
+        parts = list(dev_rows)
+        if rows:
+            parts.append(torch.as_tensor(np.stack(rows), device=self.device))
+        batch = parts[0] if len(parts) == 1 else torch.cat(parts)
+        nv2_arr = np.asarray(nv2_d + nv2_h, np.int32)
+        out = self.run_device(batch, nv2_arr)
+        # drop THIS round's staging buffers before the ladder and the
+        # recursion: each refinement level would otherwise pin its own
+        # batch of resampled rows down the recursion
+        del batch, parts, dev_rows
+        self.scl_rungs = []
+        vr = self._finish_ladder(out, expected_nonce, True, 1 << 20,
+                                 real=nv2_arr > 0)
+        for r, i in enumerate(sel):
+            verdicts[i] |= vr[r]
+        self.recover_log["rounds"].append(
+            {"rows": len(sel), "host_rows": len(sel_h), "dens": sorted(dens),
+             "accepted": int(vr.sum()), "s": time.perf_counter() - t_round,
+             "plan_s": (rs.plan_s if rs is not None else 0.0) - plan_s0,
+             "scl_s": sum(r[3] for r in self.scl_rungs)})
+
+        if refine > 0:
+            # chained inter-peak-spacing refinement, depth = ``refine``
+            # rounds.  A clip whose failed retry shows NO usable spacing
+            # estimate (wrong-basin factor -> no peaks) pulls its next
+            # fallback candidate instead of dropping out.  ``tried``
+            # dedupes on the retry lattice so a fallback that merely
+            # re-quantizes to an already-attempted rational is skipped.
+            peaks_all = _valid_peaks(out)
+            # this round's stage outputs (chips + soft rows) are fully
+            # consumed now -- free them BEFORE the recursion so only one
+            # round's outputs are ever live
+            del out
+            nxt: dict[int, float] = {}
+            for r, i in enumerate(sel):
+                if verdicts[i]:
+                    continue
+                cand = None
+                fine = robust.estimate_timescale_from_peaks(peaks_all[r],
+                                                            self.span)
+                # lower bound FINE_CHAIN_MIN, not 1e-4: that would mask
+                # the retry lattice's own quantization residual (up to
+                # ~8.3e-5 off the scan pick).  Upper bound 2%: a chained
+                # estimate measures the RESIDUAL after a correction was
+                # applied, so a large value is estimator junk (few/noisy
+                # spacings), not signal -- a wrong-basin retry's true
+                # residual is ~6%+, outside the estimator's own 6% gate
+                # anyway, and basin hops are the fallback queue's job.
+                if (fine is not None and
+                        robust.FINE_CHAIN_MIN < abs(fine - 1.0) <= 0.02):
+                    c = factors[i] * fine
+                    # k == q is the identity on the retry lattice: a
+                    # chained estimate that cancels (f1 * fine -> ~1.0)
+                    # must fall through to the fallback queue, not reach
+                    # the resampler (which raises on factor 1.0)
+                    k = int(round(q * c))
+                    if k != q and k not in tried[i]:
+                        cand = c
+                while cand is None and fallback and fallback.get(i):
+                    c = fallback[i].pop(0)
+                    k = int(round(q * c))
+                    if k != q and k not in tried.get(i, set()):
+                        cand = c
+                if cand is None:
+                    # last resort: the retry lattice's own quantization
+                    # neighbours of the factor just tried.  A clip can
+                    # sit a half-lattice-step (~4e-5) off its best
+                    # rational and fail there while the adjacent step
+                    # decodes, with no peak-spacing estimate to chain
+                    # from.
+                    k0 = int(round(q * factors[i]))
+                    for k in (k0 + 1, k0 - 1):
+                        if k != q and k not in tried.get(i, set()):
+                            cand = k / q
+                            break
+                if cand is not None:
+                    nxt[i] = cand
+            verdicts = self._retry_scaled(clips, n_valid, nxt, verdicts,
+                                          expected_nonce, refine=refine - 1,
+                                          clips_dev=clips_dev, nv_dev=nv_dev,
+                                          fs_host=fs_host, fallback=fallback,
+                                          tried=tried)
         return verdicts
 
     # ----------------------------------------------------------- SCL stage

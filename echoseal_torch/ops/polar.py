@@ -135,6 +135,23 @@ def encode_np(payload: bytes, spec: PolarSpec | None = None) -> np.ndarray:
     return polar_transform_np(u)
 
 
+def encode_batch(info_bits: torch.Tensor, spec: PolarSpec) -> torch.Tensor:
+    """Batched encoder: (..., info_len) {0,1} -> (..., N) int32 codeword bits.
+
+    The CRC is the mod-2 product with ``spec.crc_mat``, in float32 like
+    ``crc8_check_batch`` (exact: every sum is an integer of at most 440).
+    """
+    info = info_bits.to(torch.int32)
+    mat = torch.as_tensor(spec.crc_mat, dtype=torch.float32,
+                          device=info.device)
+    crc = torch.remainder(info.to(torch.float32) @ mat, 2.0).to(torch.int32)
+    u = torch.zeros(info.shape[:-1] + (spec.N,), dtype=torch.int32,
+                    device=info.device)
+    u[..., torch.as_tensor(spec.data_pos, device=info.device)] = torch.cat(
+        [info, crc], dim=-1)
+    return polar_transform(u)
+
+
 # ------------------------------------------------- hard-decision fast path
 def hard_decode_batch(llr: torch.Tensor, spec: PolarSpec):
     """Batched hard decode: (..., N) LLR (positive => bit 1).

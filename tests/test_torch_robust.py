@@ -350,8 +350,10 @@ def test_port_tx_to_port_rx_and_extended_counters(key32, both):
 
 def test_device_rule_and_unported_options(key32, both, monkeypatch):
     _, pv = both
-    with pytest.raises(NotImplementedError, match="A8"):
-        pv.verify_batch(np.zeros((1, 1 << 16), np.float32), fs_in=44_100)
+    # fs_in is ported (tests/test_torch_recover.py): a silent 44.1 kHz row
+    # is ingested and rejected, it no longer raises
+    assert pv.verify_batch(np.zeros((1, 1 << 16), np.float32),
+                           fs_in=44_100).tolist() == [False]
     with pytest.raises(ValueError):
         PP.resolve_sync_dtype("bfloat16")
     assert PP.resolve_sync_dtype(None) is torch.bfloat16
