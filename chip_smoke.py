@@ -10,8 +10,9 @@ line):
    printed raw on a line of its own), torch and CUDA versions;
 2. kernel build: every ``echoseal_torch/csrc/*.cu`` with nvcc, in parallel;
 3. kernels: each kernel's wrapper against its plain torch version on the
-   card at both paths' shapes (and a ragged one), with CUDA-event times and
-   the memory/compute bound;
+   card at the batch paths' shapes, at the single-clip paths' row counts
+   (37 and 800) and at a ragged one, with CUDA-event times and the
+   memory/compute bound;
 4. compat main path at full width: a 4096-frame stream from the port's
    host TX (every random byte drawn from ``SEED``), B = 1024 clips of 3 s
    at 48 kHz cut at frame-aligned random starts,
@@ -57,7 +58,33 @@ line):
     seeded factors in {0.953, 0.978, 1.0, 1.031, 1.047}: at least 0.9
     recovered, and every 1.0 clip accepted without a retry;
 15. 4 of the phase-14 clips through ``verify_batch_recover`` on the card
-    and on the CPU: verdicts and the lattice keys tried per clip agree.
+    and on the CPU: verdicts and the lattice keys tried per clip agree;
+16. compat single clip: a 16 s silence-host stream from ``BatchEmbedder``;
+    the first verify's seconds; 30 distinct 3.5 s cuts, a fresh
+    ``WatermarkDetector(KEY)`` each (built outside the timer): all must
+    verify, p50/p99 ms and where the time goes; a wrong key and white noise
+    must reject, with the seconds the full ladder took (SCL at L = 256);
+    ``verify_raw_frame`` on one synthesized frame, right key and wrong;
+17. v2 single clip: a 20 s 700 Hz host through the seeded
+    ``RobustEmbedder``; 30 cuts through one ``RobustVerifier(KEY)``: all
+    must verify, p50/p99 ms; one cut resampled to 44.1 kHz must verify; one
+    cut played 3.1 % fast must verify with ``timescale`` within 1e-3 of
+    0.97; noise must reject, with its seconds split into scan-bank design
+    (designed anew), scan and SCL;
+18. monitors and pool: ``StreamMonitor`` compat and v2 over a 20 s stream in
+    1 s feeds, every window authentic, then a 6 s tail from another
+    session whose windows must reject; ``BatchStreamMonitor(KEY)`` over
+    120 s in 1 s feeds: accept 1.0, audio seconds per second, feed p50/p99
+    ms; ``VerifierPool(profile="v2", max_keys=2)`` with 3 keys x 256 clips:
+    per-key isolation, eviction, verdicts right after a re-build;
+19. 4 clips per single-clip tier through the port on the card and on the
+    CPU (the same tables): verdict, stage, session and ``timescale`` must
+    be equal; so must the accepted frame (counter, band, peak position),
+    except that a compat clip may accept another of its frames, since a
+    marginal frame's hard decode can tip between two float32
+    implementations of the lam=1e-12 inversion: then each side's counter
+    must be the one its peak position implies.  The line counts the clips
+    whose fields are all equal.
 
 Before the last line it prints ``{"kernels": [...]}``: each kernel at the
 v2 path's shape, with its launches counted over every main path (each
@@ -100,6 +127,11 @@ SCALE = 1.031                 # the time-scale row: played 3.1 % fast
 MIXED_FACTORS = (0.953, 0.978, 1.0, 1.031, 1.047)
 N_MIXED = 64
 N_TX_CLIPS = 64
+N_SINGLE = 30                 # cuts per single-clip tier
+N_POOL_CLIPS = 256
+N_DEVICE_PAIR = 4             # clips per tier verified on the card and the CPU
+RESULT_FIELDS = ("authentic", "frame_ctr", "band", "peak_pos", "stage",
+                 "session_nonce", "timescale")
 TX_TOL = 2e-5
 RESAMPLE_TOL = 1e-5
 RECOVER_GATE = 0.95
@@ -155,7 +187,7 @@ def kernel_phase(torch, llr, flush):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     entry, max_err = None, 0.0
-    for lead in ((13,), (B, 4, PEAKS), (B, 4, V2_NP, V2_PEAKS)):
+    for lead in ((13,), (37,), (800,), (B, 4, PEAKS), (B, 4, V2_NP, V2_PEAKS)):
         chips = 0.05 * torch.randn(*lead, FRAME_LEN, device="cuda",
                                    generator=gen)
         pn = torch.randint(0, 2, (*lead, 1024), device="cuda",
@@ -834,6 +866,348 @@ def recover_phases(torch, card, rv, cpu, stream):
     return launches_ingest["payload_llr"], launches_rec["payload_llr"]
 
 
+def _pcts(seconds) -> dict[str, float]:
+    ms = 1e3 * np.asarray(seconds)
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "mean_ms": float(ms.mean())}
+
+
+def _timer_totals(Timer) -> dict[str, dict]:
+    """The host-clock registry as {span: {n, total seconds}}."""
+    return {k: {"n": v["n"], "total_s": v["total"]}
+            for k, v in Timer.report().items()}
+
+
+def _timed(fn, torch):
+    """(result, host seconds) of ``fn()``, the device drained after it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def compat_single_phase(torch, card):
+    """Phase 16; returns (kernel launches of the 30 verifies, the stream)."""
+    from echoseal_torch.models.detector import WatermarkDetector
+    from echoseal_torch.models.embedder import BatchEmbedder, WatermarkEmbedder
+    from echoseal_torch.ops import build
+    from echoseal_torch.utils.logging import Timer
+
+    rng = np.random.default_rng(SEED + 6)
+    stream = BatchEmbedder(KEY).embed(np.zeros(16 * FS, np.float32),
+                                      session_nonce=b"smokeses", rng=rng)
+    starts = rng.choice(stream.size - T35, N_SINGLE, replace=False)
+    det = WatermarkDetector(KEY)
+    check(det.device.type == "cuda" and det._list_size == 256,
+          "WatermarkDetector defaults changed")
+    r, first_s = _timed(lambda: det.verify_detailed(stream[:T35], FS), torch)
+    check(r.authentic, "first compat single-clip verify rejected")
+
+    Timer.registry.clear()
+    build.LAUNCHES.clear()
+    seconds, stages, tries = [], {}, []
+    for s0 in starts:
+        det = WatermarkDetector(KEY)            # fresh, outside the timer
+        r, dt = _timed(lambda: det.verify_detailed(stream[s0:s0 + T35], FS),
+                       torch)
+        check(r.authentic and r.session_nonce == b"smokeses",
+              f"compat cut at {s0} rejected: {r}")
+        check(abs(r.frame_ctr * 1215 - (s0 + r.peak_pos)) <= 2,
+              f"compat cut at {s0}: counter {r.frame_ctr} at {r.peak_pos}")
+        seconds.append(dt)
+        stages[r.stage] = stages.get(r.stage, 0) + 1
+        tries.append(r.tries)
+    launches = dict(build.LAUNCHES)
+    split = _timer_totals(Timer)
+    check(launches.get("payload_llr", 0) >= N_SINGLE,
+          f"payload_llr launches on the compat single-clip path: {launches}")
+
+    cut = stream[starts[0]:starts[0] + T35]
+    rejects = {}
+    noise = (0.1 * rng.standard_normal(T35)).astype(np.float32)
+    for name, key, clip in (("wrong_key", BAD_KEY, cut), ("noise", KEY, noise)):
+        det = WatermarkDetector(key)
+        Timer.registry.clear()
+        r, dt = _timed(lambda: det.verify_detailed(clip, FS), torch)
+        check(not r.authentic, f"compat {name} clip accepted: {r}")
+        rejects[name] = {"seconds": dt, "split": _timer_totals(Timer)}
+    frame = WatermarkEmbedder(KEY, rng=rng)._make_frame_chips()
+    raw_ok, raw_s = _timed(
+        lambda: WatermarkDetector(KEY).verify_raw_frame(frame), torch)
+    raw_bad, raw_bad_s = _timed(
+        lambda: WatermarkDetector(BAD_KEY).verify_raw_frame(frame), torch)
+    check(raw_ok is True and raw_bad is False,
+          f"verify_raw_frame: right key {raw_ok}, wrong key {raw_bad}")
+    emit({"phase": "compat_single", "card": card, "clips": N_SINGLE,
+          "clip_s": 3.5, "list_size": 256, "accept": 1.0, "stages": stages,
+          "first_verify_s": first_s, **_pcts(seconds),
+          "tries_max": int(max(tries)), "launches": launches,
+          "host_split_30_clips": split, "rejects": rejects,
+          "raw_frame": {"right_key": raw_ok, "seconds": raw_s,
+                        "wrong_key": raw_bad, "wrong_key_seconds": raw_bad_s}})
+    return launches["payload_llr"], stream
+
+
+def v2_single_phase(torch, card):
+    """Phase 17; returns (kernel launches of the 30 verifies, the stream)."""
+    from echoseal_torch.models import robust
+    from echoseal_torch.ops import build
+    from echoseal_torch.ops.resample import resample_to
+    from echoseal_torch.utils.channels import time_scale
+    from echoseal_torch.utils.logging import Timer
+
+    rng = np.random.default_rng(SEED + 7)
+    host = (0.15 * np.sin(2 * np.pi * 700 * np.arange(20 * FS) / FS)
+            ).astype(np.float32)
+    stream = robust.RobustEmbedder(KEY, rng=rng).process(host)
+    starts = rng.choice(stream.size - T35, N_SINGLE, replace=False)
+    rv, ctor_s = _timed(lambda: robust.RobustVerifier(KEY), torch)
+    check(rv.device.type == "cuda" and rv._list_size == 32
+          and rv.tables["m_stack"].shape == (4, 2, 1215, 9720),
+          "RobustVerifier defaults changed")
+    r, first_s = _timed(lambda: rv.verify_detailed(stream[:T35], FS), torch)
+    check(r.authentic, "first v2 single-clip verify rejected")
+
+    Timer.registry.clear()
+    build.LAUNCHES.clear()
+    seconds, stages = [], {}
+    for s0 in starts:
+        r, dt = _timed(lambda: rv.verify_detailed(stream[s0:s0 + T35], FS),
+                       torch)
+        check(r.authentic and r.timescale is None,
+              f"v2 cut at {s0} rejected: {r}")
+        seconds.append(dt)
+        stages[r.stage] = stages.get(r.stage, 0) + 1
+    launches = dict(build.LAUNCHES)
+    split = _timer_totals(Timer)
+    check(launches.get("payload_llr", 0) >= N_SINGLE,
+          f"payload_llr launches on the v2 single-clip path: {launches}")
+
+    cut = stream[starts[0]:starts[0] + T35]
+    r44, s44 = _timed(
+        lambda: rv.verify_detailed(resample_to(44_100, cut, FS), 44_100), torch)
+    check(r44.authentic, f"v2 44.1 kHz cut rejected: {r44}")
+    Timer.registry.clear()
+    rts, sts = _timed(lambda: rv.verify_detailed(time_scale(cut, SCALE), FS),
+                      torch)
+    check(rts.authentic and rts.timescale is not None
+          and abs(rts.timescale - 0.97) <= 1e-3,
+          f"v2 cut played {SCALE}x: {rts}")
+    ts_split = _timer_totals(Timer)
+
+    # noise through a fresh verifier, the scan bank designed anew
+    robust.scaled_template_bank.cache_clear()
+    rv_noise = robust.RobustVerifier(KEY)
+    noise = (0.1 * rng.standard_normal(T35)).astype(np.float32)
+    Timer.registry.clear()
+    rn, sn = _timed(lambda: rv_noise.verify_detailed(noise, FS), torch)
+    check(not rn.authentic, f"v2 noise clip accepted: {rn}")
+    emit({"phase": "v2_single", "card": card, "clips": N_SINGLE,
+          "clip_s": 3.5, "list_size": 32, "accept": 1.0, "stages": stages,
+          "verifier_init_s": ctor_s, "first_verify_s": first_s,
+          **_pcts(seconds), "launches": launches,
+          "host_split_30_clips": split,
+          "capture_44k1": {"authentic": True, "stage": r44.stage,
+                           "seconds": s44},
+          "timescale": {"factor": SCALE, "authentic": True,
+                        "recovered": rts.timescale, "stage": rts.stage,
+                        "seconds": sts, "split": ts_split},
+          "noise": {"authentic": False, "seconds": sn,
+                    "split": _timer_totals(Timer)}})
+    return launches["payload_llr"], stream
+
+
+def _drive_monitor(mon, stream, tail, torch):
+    """1 s feeds of ``stream`` then of ``tail``; (events, tail events, s)."""
+    t0 = time.perf_counter()
+    own = [ev for i in range(0, stream.size, FS)
+           for ev in mon.feed(stream[i:i + FS])]
+    own_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    foreign = [ev for i in range(0, tail.size, FS)
+               for ev in mon.feed(tail[i:i + FS])] + mon.flush()
+    torch.cuda.synchronize()
+    return own, foreign, own_s, time.perf_counter() - t0
+
+
+def monitor_pool_phase(torch, card, v2_stream):
+    """Phase 18; returns the kernel launches of the stream monitors, of the
+    batch monitor and of the pool."""
+    from echoseal_torch.models import robust
+    from echoseal_torch.models.embedder import BatchEmbedder
+    from echoseal_torch.models.monitor import BatchStreamMonitor, StreamMonitor
+    from echoseal_torch.models.service import VerifierPool
+    from echoseal_torch.ops import build, demod
+
+    rng = np.random.default_rng(SEED + 8)
+    # ---- StreamMonitor, both tiers, with a foreign-session tail -------------
+    compat20 = BatchEmbedder(KEY).embed(
+        np.zeros(20 * FS, np.float32), session_nonce=b"smokeses", rng=rng)
+    tails = {
+        "compat": BatchEmbedder(KEY).embed(
+            np.zeros(6 * FS, np.float32), session_nonce=b"foreign!", rng=rng),
+        "v2": robust.RobustEmbedder(KEY, rng=rng).process(
+            np.zeros(6 * FS, np.float32))}
+    build.LAUNCHES.clear()
+    mon_lines = {}
+    for profile, stream in (("compat", compat20), ("v2", v2_stream)):
+        mon = StreamMonitor(KEY, profile=profile)
+        own, foreign, own_s, tail_s = _drive_monitor(mon, stream,
+                                                     tails[profile], torch)
+        check(len(own) == 9 and all(ev.result.authentic for ev in own),
+              f"{profile} StreamMonitor: "
+              f"{[(ev.t_start, ev.result.authentic) for ev in own]}")
+        late = [ev for ev in foreign if ev.t_start >= 20.0]
+        check(len(late) >= 2 and not any(ev.result.authentic for ev in late),
+              f"{profile} StreamMonitor foreign tail: "
+              f"{[(ev.t_start, ev.result.authentic) for ev in foreign]}")
+        check(mon.session_nonce is not None, f"{profile} monitor: no latch")
+        mon_lines[profile] = {
+            "windows": len(own), "authentic": len(own), "stream_s": 20,
+            "seconds": own_s, "audio_s_per_s": 20 / own_s,
+            "tail_windows": len(foreign), "tail_rejected": len(late),
+            "tail_seconds": tail_s,
+            "stages": sorted({ev.result.stage for ev in own})}
+    launches_mon = dict(build.LAUNCHES)
+    check(launches_mon.get("payload_llr", 0) >= 18,
+          f"payload_llr launches of the stream monitors: {launches_mon}")
+
+    # ---- BatchStreamMonitor over 120 s in 1 s feeds -------------------------
+    host = (0.15 * np.sin(2 * np.pi * 700 * np.arange(120 * FS) / FS)
+            ).astype(np.float32)
+    t0 = time.perf_counter()
+    long_stream = robust.RobustEmbedder(KEY, rng=rng).embed(
+        host, session_nonce=b"batchmon")
+    tx_s = time.perf_counter() - t0
+    bmon, bmon_init_s = _timed(lambda: BatchStreamMonitor(KEY), torch)
+    check(bmon._bv.device.type == "cuda" and bmon._tpad == 4 * FS + 16_384,
+          "BatchStreamMonitor defaults changed")
+    build.LAUNCHES.clear()
+    events, feeds = [], []
+    for i in range(0, long_stream.size, FS):
+        ev, dt = _timed(lambda: bmon.feed(long_stream[i:i + FS]), torch)
+        events += ev
+        feeds.append(dt)
+    events += bmon.flush()
+    launches_bmon = dict(build.LAUNCHES)
+    accept = float(np.mean([ev.result.authentic for ev in events]))
+    check(len(events) == 59 and accept == 1.0,
+          f"BatchStreamMonitor: {len(events)} windows, accept {accept}")
+    check(all(ev.result.session_nonce == b"batchmon" for ev in events),
+          "BatchStreamMonitor: an event names another session")
+    check(launches_bmon.get("payload_llr", 0) >= len(events),
+          f"payload_llr launches of the batch monitor: {launches_bmon}")
+    with_window = [f for f, i in zip(feeds, range(len(feeds))) if i >= 3
+                   and i % 2 == 1]
+    bmon_line = {"stream_s": 120, "windows": len(events), "accept": accept,
+                 "stages": {s: sum(ev.result.stage == s for ev in events)
+                            for s in ("hard", "scl", "ext_ctr")},
+                 "init_s": bmon_init_s, "host_tx_s": tx_s,
+                 "feed_total_s": sum(feeds),
+                 "audio_s_per_s": 120 / sum(feeds),
+                 "feed": _pcts(feeds), "feed_with_window": _pcts(with_window),
+                 "launches": launches_bmon}
+    del bmon, long_stream
+
+    # ---- VerifierPool: 3 keys, room for 2 ------------------------------------
+    keys = [bytes([k]) * 32 for k in (0x11, 0x22, 0x33)]
+    nv = torch.full((N_POOL_CLIPS,), T, dtype=torch.int32, device="cuda")
+    batches = []
+    for key in keys:
+        stream = robust.RobustEmbedder(key, rng=rng).process(
+            (0.15 * np.sin(2 * np.pi * 700 * np.arange(STREAM_S_V2 * FS) / FS)
+             ).astype(np.float32))
+        starts = rng.integers(0, stream.size - T, N_POOL_CLIPS)
+        clips = torch.zeros(N_POOL_CLIPS, TPAD_V2, device="cuda")
+        clips[:, :T] = demod.slice_windows(
+            torch.from_numpy(stream).cuda(), torch.from_numpy(starts).cuda(), T)
+        batches.append(clips)
+    pool = VerifierPool(profile="v2", max_keys=2)
+    build.LAUNCHES.clear()
+    steps = []
+
+    def step(name, k, b, want, cached):
+        v, dt = _timed(lambda: pool.verify(keys[k], batches[b], nv), torch)
+        check(bool(v.all()) if want else not v.any(),
+              f"pool {name}: accept {float(v.mean())}, wanted {want}")
+        check(pool.cached_keys == [keys[i] for i in cached],
+              f"pool {name}: cached keys "
+              f"{[keys.index(c) for c in pool.cached_keys]}, wanted {cached}")
+        steps.append({"step": name, "seconds": dt, "accept": float(v.mean())})
+
+    step("key0_build", 0, 0, True, [0])
+    step("key1_build", 1, 1, True, [0, 1])
+    step("key1_cached", 1, 1, True, [0, 1])
+    step("key1_on_key0_clips", 1, 0, False, [0, 1])
+    step("key2_build_evicts_key0", 2, 2, True, [1, 2])
+    step("key0_rebuilt_evicts_key1", 0, 0, True, [2, 0])
+    step("key2_on_key1_clips", 2, 1, False, [0, 2])
+    launches_pool = dict(build.LAUNCHES)
+    check(launches_pool.get("payload_llr", 0) >= len(steps),
+          f"payload_llr launches of the pool: {launches_pool}")
+    emit({"phase": "monitors_pool", "card": card, "stream_monitor": mon_lines,
+          "stream_monitor_launches": launches_mon,
+          "batch_monitor": bmon_line,
+          "pool": {"profile": "v2", "max_keys": 2, "keys": 3,
+                   "clips_per_key": N_POOL_CLIPS, "steps": steps,
+                   "launches": launches_pool}})
+    return (launches_mon["payload_llr"], launches_bmon["payload_llr"],
+            launches_pool["payload_llr"])
+
+
+def device_pair_phase(torch, card, compat_stream, v2_stream):
+    """Phase 19: the single-clip tiers on the card and on the CPU."""
+    from echoseal_torch.models.detector import WatermarkDetector
+    from echoseal_torch.models.robust import RobustVerifier
+
+    from echoseal_torch.core.params import FRAME_LEN
+
+    rng = np.random.default_rng(SEED + 9)
+    line = {"phase": "single_gpu_vs_cpu", "clips_per_tier": N_DEVICE_PAIR,
+            "fields": list(RESULT_FIELDS)}
+    frame_fields = ("frame_ctr", "band", "peak_pos")
+    for tier, cls, stream in (("compat", WatermarkDetector, compat_stream),
+                              ("v2", RobustVerifier, v2_stream)):
+        gpu = cls(KEY)
+        cpu = cls.from_tables(
+            KEY, {k: v.cpu().numpy() for k, v in gpu.tables.items()},
+            device="cpu")
+        check(cpu.device.type == "cpu" and gpu.device.type == "cuda",
+              "device pair not on two devices")
+        rows, cpu_s = [], 0.0
+        for s0 in rng.choice(stream.size - T35, N_DEVICE_PAIR, replace=False):
+            clip = stream[s0:s0 + T35]
+            gpu.session_nonce = cpu.session_nonce = None
+            rg = gpu.verify_detailed(clip, FS)
+            t0 = time.perf_counter()
+            rc = cpu.verify_detailed(clip, FS)
+            cpu_s += time.perf_counter() - t0
+            differ = [f for f in RESULT_FIELDS
+                      if getattr(rg, f) != getattr(rc, f)]
+            ok = rg.authentic and rc.authentic
+            if tier == "compat":
+                # another frame of the clip may accept first; each side's
+                # counter must then be the one its peak position implies
+                ok = ok and set(differ) <= set(frame_fields) and all(
+                    abs(r.frame_ctr * FRAME_LEN - (s0 + r.peak_pos)) <= 2
+                    and r.band == gpu._hop.band(r.frame_ctr)
+                    for r in (rg, rc))
+            else:
+                ok = ok and not differ
+            check(ok, f"{tier} cut at {s0}: card {rg} cpu {rc}")
+            rows.append({"start": int(s0), "stage": rg.stage,
+                         "fields_equal": not differ,
+                         "frame_ctr": [rg.frame_ctr, rc.frame_ctr],
+                         "peak_pos": [rg.peak_pos, rc.peak_pos],
+                         "tries": [rg.tries, rc.tries]})
+        line[tier] = {"clips_all_fields_equal":
+                      sum(r["fields_equal"] for r in rows),
+                      "clips": rows, "cpu_s": cpu_s}
+    emit(line)
+
+
 def main() -> None:
     import torch
 
@@ -874,6 +1248,13 @@ def main() -> None:
     del bv, host_frames
     by_path["ingest_44k1"], by_path["timescale_recover"] = recover_phases(
         torch, card, rv, cpu, stream)
+    del rv, cpu, stream
+    torch.cuda.empty_cache()
+    by_path["compat_single"], compat_stream = compat_single_phase(torch, card)
+    by_path["v2_single"], v2_stream = v2_single_phase(torch, card)
+    (by_path["stream_monitors"], by_path["batch_monitor"],
+     by_path["verifier_pool"]) = monitor_pool_phase(torch, card, v2_stream)
+    device_pair_phase(torch, card, compat_stream, v2_stream)
     entry["launches"] = sum(by_path.values())
     entry["launches_by_path"] = by_path
     entry["max_abs_err"] = max_err

@@ -53,15 +53,24 @@ def _plaintext(frame_ctr: int, session_nonce: bytes,
 
 
 class WatermarkEmbedder:
-    """Streaming watermark mixer (reference WatermarkEmbedder surface)."""
+    """Streaming watermark mixer (reference WatermarkEmbedder surface).
 
-    def __init__(self, key32: bytes, params: TxParams | None = None) -> None:
+    ``rng`` (a ``numpy.random.Generator``), when given, draws every random
+    byte -- the session nonce, then each frame's plaintext pad and its AEAD
+    nonce -- so the output is reproducible test data.  Without it they
+    come from ``secrets``.
+    """
+
+    def __init__(self, key32: bytes, params: TxParams | None = None, *,
+                 rng: np.random.Generator | None = None) -> None:
         self.p = params or TxParams()
         self.sec = SecureChannel(key32)
         self._hop = hop_schedule(key32)
+        self._rng = rng
         self.frame_ctr = 0
         self._chip_buf = np.empty(0, dtype=np.float32)
-        self._session_nonce = secrets.token_bytes(8)
+        self._session_nonce = (secrets.token_bytes(8) if rng is None
+                               else rng.bytes(8))
         self._spec = polar_spec(self.p.N, self.p.K)
         self._preamble_sy = bits_to_bpsk(self.p.preamble)
         # header PN is counter-independent: always the frame-0 stream
@@ -99,7 +108,8 @@ class WatermarkEmbedder:
     # ------------------------------------------------------------ internals
     def _build_payload(self) -> bytes:
         """Seal the 27-byte plaintext -> 55-byte blob (embedder.py:153-168)."""
-        blob = self.sec.seal(_plaintext(self.frame_ctr, self._session_nonce))
+        blob = _seal_frames(self.sec, [self.frame_ctr], self._session_nonce,
+                            self._rng)[0]
         assert len(blob) == 55
         return blob
 
@@ -275,11 +285,13 @@ class BatchEmbedder:
         self._t_fwd = dev(demod.all_forward_matrices(self.p.fs))
 
     def chip_stream(self, n_samples: int, start_ctr: int = 0,
-                    session_nonce: bytes | None = None) -> np.ndarray:
+                    session_nonce: bytes | None = None, *,
+                    rng: np.random.Generator | None = None) -> np.ndarray:
         """Watermark chips covering ``n_samples``, frames start_ctr upward."""
         n_frames = -(-n_samples // FRAME_LEN)
         ctrs = np.arange(start_ctr, start_ctr + n_frames, dtype=np.int64)
-        chips = self.frames(ctrs, session_nonce=session_nonce).reshape(-1)
+        chips = self.frames(ctrs, session_nonce=session_nonce,
+                            rng=rng).reshape(-1)
         return chips[:n_samples]
 
     def frames(self, ctrs: np.ndarray, session_nonce: bytes | None = None, *,
@@ -310,12 +322,14 @@ class BatchEmbedder:
             dev(self._hop.indices(ctrs)), self._t_fwd, self._spec)
 
     def embed(self, host: np.ndarray, start_ctr: int = 0,
-              session_nonce: bytes | None = None) -> np.ndarray:
+              session_nonce: bytes | None = None, *,
+              rng: np.random.Generator | None = None) -> np.ndarray:
         """Watermark a whole host buffer with the reference mix law applied
         per FRAME_LEN-sized block (matches streaming ``process`` called with
-        block == FRAME_LEN)."""
+        block == FRAME_LEN).  ``rng`` seeds the random bytes as in
+        ``frames``."""
         x = np.asarray(host, dtype=np.float32)
-        chips = self.chip_stream(x.size, start_ctr, session_nonce)
+        chips = self.chip_stream(x.size, start_ctr, session_nonce, rng=rng)
         out = np.empty_like(x)
         alpha = db_to_lin(self.p.target_rel_db)
         floor = db_to_lin(self.p.floor_rel_dbfs)

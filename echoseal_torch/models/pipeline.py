@@ -49,18 +49,13 @@ from echoseal_torch.convert import (
     V2_TABLE_DTYPES,
     tables_from_numpy,
 )
-from echoseal_torch.core.bandplan import BAND_PLAN, hop_schedule
+from echoseal_torch.core.bandplan import hop_schedule
 from echoseal_torch.core.crypto import SecureChannel
 from echoseal_torch.core.device import resolve_device
 from echoseal_torch.core.params import FRAME_LEN, HDR_L, MAGIC, PRE_L, WIDE_DELTA
 from echoseal_torch.core.profiles import ROBUST, WaveformProfile, profile_spec
 from echoseal_torch.core.sequences import bits_to_bpsk, mls63
 from echoseal_torch.models import robust
-from echoseal_torch.models.robust import (
-    LAM_PROFILES,
-    robust_demod_matrix,
-    robust_templates,
-)
 from echoseal_torch.ops import demod
 from echoseal_torch.ops.llr import payload_llr
 from echoseal_torch.ops.polar import PolarSpec, hard_decode_batch, polar_spec
@@ -350,31 +345,11 @@ def _resolve_counters(hdr_ok, lo16, ctr_est, hop_table, band_ids, max_ctr):
 
 def host_tables_v2(sec: SecureChannel, hop, fs: int, max_ctr: int,
                    profile: WaveformProfile = ROBUST) -> dict[str, np.ndarray]:
-    """Every table the v2 stage reads, as numpy arrays."""
-    S = profile.oversample
+    """Every table the v2 stage reads, as numpy arrays: the single-clip
+    scan's design tables plus the per-key PN and hop tables."""
     pn_table, hop_table = _key_tables(sec, hop, max_ctr)
-    m_stack = np.stack([
-        np.stack([robust_demod_matrix(lo, hi, fs, S, lam)
-                  for lam in LAM_PROFILES])
-        for lo, hi in BAND_PLAN])                       # (4, 2, 1215, span)
-    return dict(
-        templates=robust_templates(fs, S), m_stack=m_stack,
-        pre_sy=bits_to_bpsk(mls63()),
-        hdr_pn_sy=bits_to_bpsk(sec.pn_bits(0, HDR_L)),
-        pn_table=pn_table, hop_table=hop_table)
-
-
-def _ls_demod(win: torch.Tensor, m_stack: torch.Tensor) -> torch.Tensor:
-    """(B, 4, K, W) windows x (4, NP, C, W) LS stack -> (B, 4, NP, K, C).
-
-    JAX's ``einsum("bfkw,fpcw->bfpkc")`` as ONE band-batched float32
-    matmul (4, B*K, W) @ (4, W, NP*C); the stack is read in place, never
-    broadcast against the rows.
-    """
-    B, nb, K, W = win.shape
-    _, NP, C, _ = m_stack.shape
-    out = demod._band_major(win) @ m_stack.reshape(nb, NP * C, W).transpose(1, 2)
-    return out.reshape(nb, B, K, NP, C).permute(1, 0, 3, 2, 4).contiguous()
+    return dict(robust.host_tables(sec, fs, profile),
+                pn_table=pn_table, hop_table=hop_table)
 
 
 @torch.no_grad()
@@ -398,7 +373,7 @@ def _batch_verify_stage_v2(x: torch.Tensor, n_valid: torch.Tensor,
                            compute_dtype=sync_dtype, marks=marks)
     win = demod.slice_windows(x, idx, span)                  # (B, 4, K, span)
     win = win * torch.rsqrt(torch.mean(win * win, -1, keepdim=True) + 1e-30)
-    chips = _ls_demod(win, tables["m_stack"])                # (B,4,NP,K,1215)
+    chips = demod.ls_demod(win, tables["m_stack"])           # (B,4,NP,K,1215)
     del win
     _mark(marks, "demod")
     out = _decode_stage(chips, idx, val, tables, marks, spec=spec, span=span,

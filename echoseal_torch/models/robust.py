@@ -1,4 +1,5 @@
-"""Robust (v2) waveform: receiver designs, time-scale scan, and the host TX.
+"""Robust (v2) waveform: receiver designs, time-scale scan, host TX, and
+the single-clip verifier.
 
 Same crypto, frame layout (63/128/1024 chips), hop schedule, payload
 format and mixing law as the compat path, but each chip is HELD for
@@ -10,7 +11,9 @@ model (``robust_demod_matrix``) after syncing on the oversampled preamble
 ``models/pipeline.py::RobustBatchVerifier``.  Its time-scale recovery
 uses the scaled-template scan (``scaled_template_bank``,
 ``_scale_scan_batch``) and the inter-peak spacing estimator
-(``estimate_timescale_from_peaks``) below.
+(``estimate_timescale_from_peaks``) below.  ``RobustVerifier`` is the
+single-clip verifier on the same designs (``_robust_scan``), with the
+time-scale recovery ladder of ``verify_detailed``.
 """
 from __future__ import annotations
 
@@ -22,8 +25,14 @@ import scipy.linalg as sla
 import torch
 from scipy.signal import lfilter
 
+from echoseal_torch.convert import (
+    SCAN_TABLE_DTYPES,
+    VERIFIER_TABLE_DTYPES,
+    tables_from_numpy,
+)
 from echoseal_torch.core.bandplan import BAND_PLAN, hop_schedule
 from echoseal_torch.core.crypto import SecureChannel
+from echoseal_torch.core.device import resolve_device
 from echoseal_torch.core.params import (
     EPS,
     FRAME_LEN,
@@ -35,15 +44,33 @@ from echoseal_torch.core.params import (
 )
 from echoseal_torch.core.profiles import ROBUST, WaveformProfile, profile_spec
 from echoseal_torch.core.sequences import bits_to_bpsk, header_bits, mls63
+from echoseal_torch.models.detector import VerifyResult
 from echoseal_torch.models.embedder import db_to_lin
-from echoseal_torch.ops import filters
-from echoseal_torch.ops.polar import encode_np
+from echoseal_torch.ops import demod, filters
+from echoseal_torch.ops.llr import payload_llr
+from echoseal_torch.ops.polar import encode_np, hard_decode_batch, pack_info_bits
 from echoseal_torch.ops.resample import resample_to
+from echoseal_torch.ops.scl import scl_decode
+from echoseal_torch.utils.logging import Timer, get_logger
+
+_LOG = get_logger("rx.v2")
 
 MIN_CLIP_SECONDS = 3.0
 # LS regularisation ladder for the oversampled model: the in-band energy
 # concentration makes conditioning mild, so two profiles suffice
 LAM_PROFILES = (1e-6, 1e-3)
+
+
+def resolve_table_dtype(table_dtype: str | None) -> torch.dtype:
+    """Storage dtype of the v2 LS demod tables: float32 only.
+
+    ``None`` and ``"f32"`` give ``torch.float32``; anything else raises
+    (the JAX package's ``"bf16"`` storage is not ported).
+    """
+    if table_dtype not in (None, "f32"):
+        raise ValueError(f"table_dtype={table_dtype!r}: the port stores "
+                         "its v2 tables in float32 only ('f32' or None)")
+    return torch.float32
 
 
 # --------------------------------------------------------------- host model
@@ -243,6 +270,12 @@ class RobustEmbedder:
         scale = min(scale, headroom / peak) if peak > 0.0 else 0.0
         return x + chips * scale
 
+    def embed(self, host: np.ndarray,
+              session_nonce: bytes | None = None) -> np.ndarray:
+        if session_nonce is not None:
+            self._session_nonce = session_nonce
+        return self.process(host)
+
     def _make_frame(self) -> np.ndarray:
         S = self.profile.oversample
         ctr = self.frame_ctr
@@ -265,3 +298,302 @@ class RobustEmbedder:
         if peak > 3.0:
             chips = chips / peak
         return chips.astype(np.float32)
+
+
+# ------------------------------------------------------------------ RX side
+def host_tables(sec: SecureChannel, fs: int,
+                profile: WaveformProfile = ROBUST) -> dict[str, np.ndarray]:
+    """Every table the single-clip v2 scan reads, as numpy arrays."""
+    S = profile.oversample
+    m_stack = np.stack([
+        np.stack([robust_demod_matrix(lo, hi, fs, S, lam)
+                  for lam in LAM_PROFILES])
+        for lo, hi in BAND_PLAN])                       # (4, 2, 1215, span)
+    return dict(
+        templates=robust_templates(fs, S), m_stack=m_stack,
+        pre_sy=bits_to_bpsk(mls63()),
+        hdr_pn_sy=bits_to_bpsk(sec.pn_bits(0, HDR_L)))
+
+
+@torch.no_grad()
+def _robust_scan(x: torch.Tensor, n_valid: int,
+                 tables: dict[str, torch.Tensor], span: int,
+                 peaks: int = 4) -> dict[str, torch.Tensor]:
+    """Sync + demod + header for one zero-padded v2 clip.
+
+    ``tables``: ``convert.VERIFIER_TABLE_DTYPES``; ``m_stack`` is
+    (4, P, 1215, span).  The sync is float32 here (the batch tier's is
+    bf16).
+    """
+    corr = demod.normalized_xcorr(x, tables["templates"])
+    lag = torch.arange(corr.shape[-1], device=x.device)
+    corr = corr.masked_fill(lag > int(n_valid) - span, float("-inf"))
+    idx, val = demod.topk_nms(corr, peaks, span // 2)        # (4, K)
+
+    win = demod.slice_windows(x, idx, span)                  # (4, K, span)
+    win = win * torch.rsqrt(torch.mean(win * win, -1, keepdim=True) + 1e-30)
+    chips = demod.ls_demod(win[None], tables["m_stack"])[0]  # (4,P,K,1215)
+    pre = demod.preamble_score(chips, tables["pre_sy"])
+    hdr_ok, lo16, hdr_score = demod.header_decode(chips, tables["hdr_pn_sy"])
+    return dict(peak_idx=idx, peak_val=val, chips=chips, pre=pre,
+                hdr_ok=hdr_ok, hdr_lo16=lo16, hdr_score=hdr_score)
+
+
+class RobustVerifier:
+    """Single-clip v2 verifier (same verify surface as WatermarkDetector).
+
+    ``device=None`` means CUDA and raises ``RuntimeError`` without a card;
+    pass ``device="cpu"`` to run on the CPU.  Construction turns TF32 off
+    for matmuls and cuDNN.
+    """
+
+    def __init__(self, key32: bytes, *, fs_target: int | None = None,
+                 list_size: int | None = None,
+                 profile: WaveformProfile = ROBUST,
+                 timescale_grid: tuple[float, ...] | None = None,
+                 table_dtype: str | None = None,
+                 params=None,
+                 device: str | torch.device | None = None) -> None:
+        resolve_table_dtype(table_dtype)
+        device = resolve_device(device)
+        sec = SecureChannel(key32)
+        fs = fs_target if fs_target is not None else (
+            params.fs_target if params is not None else 48_000)
+        self._setup(key32, sec, host_tables(sec, fs, profile), device,
+                    fs_target=fs_target, list_size=list_size, profile=profile,
+                    timescale_grid=timescale_grid, params=params)
+
+    @classmethod
+    def from_tables(cls, key32: bytes, tables: dict[str, np.ndarray], *,
+                    device: str | torch.device | None = None, **options):
+        """A verifier on given numpy tables (e.g. another verifier's)."""
+        self = cls.__new__(cls)
+        self._setup(key32, SecureChannel(key32), tables,
+                    resolve_device(device), **options)
+        return self
+
+    def _setup(self, key32, sec, tables, device, *,
+               fs_target: int | None = None, list_size: int | None = None,
+               profile: WaveformProfile = ROBUST,
+               timescale_grid: tuple[float, ...] | None = None,
+               params=None) -> None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # RxParams may supply fs_target / list_size / timescale_grid
+        # defaults (explicit kwargs win); the compat detector reads the
+        # same container, so one config object drives both tiers
+        if params is not None:
+            if list_size is None:
+                list_size = params.list_size
+            if timescale_grid is None and params.timescale_grid:
+                timescale_grid = params.timescale_grid
+            if fs_target is None:
+                fs_target = params.fs_target
+        self.profile = profile
+        self.fs_target = 48_000 if fs_target is None else fs_target
+        self.sec = sec
+        self._hop = hop_schedule(key32)
+        self._spec = profile_spec(profile)
+        self._list_size = 32 if list_size is None else int(list_size)
+        self.session_nonce: bytes | None = None
+        self.timescale_grid = (1.0,) if timescale_grid is None \
+            else timescale_grid
+        self.device = device
+        self.tables = tables_from_numpy(tables, device, VERIFIER_TABLE_DTYPES)
+        self._scan_bank: torch.Tensor | None = None
+
+    def verify(self, audio: np.ndarray, fs_in: int) -> bool:
+        return self.verify_detailed(audio, fs_in).authentic
+
+    def verify_detailed(self, audio: np.ndarray, fs_in: int) -> VerifyResult:
+        signal = resample_to(self.fs_target, audio, fs_in)
+        if signal.size < int(MIN_CLIP_SECONDS * self.fs_target):
+            return VerifyResult(False, stage=None)
+        res = self._verify_once(signal)
+        if res.authentic:
+            _LOG.event("verdict", authentic=True, stage=res.stage,
+                       tries=res.tries, ctr=res.frame_ctr)
+            return res
+
+        # ---- time-scale recovery ladder ---------------------------------
+        # The demod window loses chip coherence past ~2e-4 residual scale
+        # while sync peaks stay visible to ~2.5e-3, so EVERY coarse
+        # correction chains one inter-peak-spacing refinement: coarse gets
+        # the peaks to show, the spacing estimator (frame spacing =
+        # k*span/residual, ~5e-5 resolution on a >=2-frame baseline) pins
+        # the true factor, one more resample verifies.  Coarse candidates,
+        # cheapest first: the unscaled clip's own peaks (residual already
+        # <~0.25%), the caller grid, then the sync-only scaled-template
+        # scan (unknown +-5%, no hint).
+        tried = {1.0}
+        for factor in self._correction_candidates(signal, res):
+            f = round(float(factor), 6)
+            if f in tried:
+                continue
+            tried.add(f)
+            r = self._verify_scaled(signal, f)
+            if r.authentic:
+                _LOG.event("verdict", authentic=True, stage=r.stage,
+                           timescale=r.timescale, ctr=r.frame_ctr)
+                return r
+            fine = self._estimate_timescale(r.peaks)
+            if fine is not None and abs(fine - 1.0) > FINE_CHAIN_MIN:
+                f2 = round(f * fine, 6)
+                if f2 not in tried:
+                    tried.add(f2)
+                    r = self._verify_scaled(signal, f2)
+                    if r.authentic:
+                        _LOG.event("verdict", authentic=True, stage=r.stage,
+                                   timescale=r.timescale, ctr=r.frame_ctr)
+                        return r
+        _LOG.event("verdict", authentic=False, tried=sorted(tried))
+        return VerifyResult(False, stage=None)
+
+    def _correction_candidates(self, signal: np.ndarray, res0):
+        """Lazy coarse correction factors for the recovery ladder."""
+        fine0 = self._estimate_timescale(res0.peaks)
+        if fine0 is not None and abs(fine0 - 1.0) > FINE_CHAIN_MIN:
+            yield fine0
+        for f in self.timescale_grid:
+            if f != 1.0:
+                yield f
+        est = self.estimate_scale(signal)
+        if est is not None and abs(est - 1.0) > 1e-4:
+            yield est
+
+    def _verify_scaled(self, signal: np.ndarray, factor: float) -> VerifyResult:
+        sig = resample_to(self.fs_target, signal,
+                          int(round(self.fs_target * factor)))
+        res = self._verify_once(sig)
+        res.timescale = factor
+        return res
+
+    def estimate_scale(self, signal: np.ndarray) -> float | None:
+        """Sync-only scan: best correction factor in [0.95, 1.05] or None.
+
+        One device pass correlates the clip against the full scaled
+        template bank, pinning the playback-speed correction to the grid
+        step (~0.33%), inside the preamble's sync-coherence range.  The
+        gate is deliberately loose: a false estimate costs one wasted
+        verify pass, a missed true one costs the clip.  The bank is
+        designed on the host at the first call (seconds) and then stays on
+        the device.
+        """
+        if self._scan_bank is None:
+            with Timer("rx.v2.scan_bank"):
+                self._scan_bank = tables_from_numpy(
+                    {"scan_bank": scaled_template_bank(
+                        self.fs_target, self.profile.oversample)},
+                    self.device, SCAN_TABLE_DTYPES)["scan_bank"]
+        bank = self._scan_bank
+        T = signal.size
+        Tpad = 1 << max(17, (T + bank.shape[-1] - 1).bit_length())
+        x = np.zeros(Tpad, dtype=np.float32)
+        x[:T] = signal
+        with Timer("rx.v2.scale_scan"):
+            score = _scale_scan_stage(
+                torch.as_tensor(x, device=self.device), T, bank).cpu().numpy()
+        per_factor = score.reshape(len(SCALE_SCAN_GRID), 4).max(axis=1)
+        med = np.median(per_factor)
+        mad = np.median(np.abs(per_factor - med)) + 1e-9
+        best = int(np.argmax(per_factor))
+        if per_factor[best] < max(med + 2.0 * 1.4826 * mad, 1.15 * med):
+            return None
+        return float(SCALE_SCAN_GRID[best])
+
+    def _estimate_timescale(self, peaks: np.ndarray | None) -> float | None:
+        return estimate_timescale_from_peaks(peaks, self.profile.span)
+
+    @torch.no_grad()
+    def _verify_once(self, signal: np.ndarray) -> VerifyResult:
+        dev = self.device
+        span = self.profile.span
+        T = signal.size
+        Tpad = 1 << max(17, (T + span - 1).bit_length())
+        x = np.zeros(Tpad, dtype=np.float32)
+        x[:T] = signal
+        with Timer("rx.v2.scan"):
+            dev_out = _robust_scan(torch.as_tensor(x, device=dev), T,
+                                   self.tables, span=span)
+            # the small arrays the host's candidate construction reads;
+            # the chips stay on the device
+            out = {k: dev_out[k].cpu().numpy()
+                   for k in ("peak_idx", "peak_val", "hdr_ok", "hdr_lo16")}
+        peaks = np.where(np.isfinite(out["peak_val"]), out["peak_idx"], -1)
+
+        nb, npf, nk, _ = dev_out["chips"].shape
+        rows = []   # (band, prof, k, ctr)
+        for b in range(nb):
+            for k in range(nk):
+                start = int(out["peak_idx"][b, k])
+                ctr_est = int(round(start / span))
+                for p in range(npf):
+                    lo16 = int(out["hdr_lo16"][b, p, k])
+                    cands = []
+                    if out["hdr_ok"][b, p, k] and self._hop.index(lo16) == b:
+                        cands.append(lo16)
+                    cands += [c for c in range(max(0, ctr_est - 3),
+                                               ctr_est + 4)
+                              if self._hop.index(c) == b and c not in cands]
+                    for c in cands:
+                        rows.append((b, p, k, c))
+        if not rows:
+            return VerifyResult(False, stage=None, peaks=peaks)
+
+        bands = np.array([r[0] for r in rows])
+        profs = np.array([r[1] for r in rows])
+        ks = np.array([r[2] for r in rows])
+        ctrs = np.array([r[3] for r in rows], dtype=np.int64)
+
+        def accepted(i: int, stage: str, tries: int) -> VerifyResult:
+            return VerifyResult(True, frame_ctr=int(ctrs[i]),
+                                band=BAND_PLAN[bands[i]],
+                                peak_pos=int(out["peak_idx"][bands[i], ks[i]]),
+                                stage=stage, tries=tries, peaks=peaks)
+
+        b_, p_, k_ = torch.as_tensor(np.stack([bands, profs, ks]), device=dev)
+        chips = dev_out["chips"][b_, p_, k_]
+        uniq, inv = np.unique(ctrs, return_inverse=True)
+        pn = self.sec.pn_bits_batch(uniq, FRAME_LEN)[:, PRE_L + HDR_L:]
+        pn_sy = 2.0 * torch.as_tensor(np.ascontiguousarray(pn), device=dev)[
+            torch.as_tensor(inv, device=dev)].to(torch.float32) - 1.0
+
+        with Timer("rx.v2.llr_hard"):
+            llr = payload_llr(chips, pn_sy)
+            info, crc_ok = hard_decode_batch(llr, self._spec)
+            hits = torch.nonzero(crc_ok)[:, 0]
+            bits = info[hits].to(torch.uint8).cpu().numpy()
+        for i, row in zip(hits.tolist(), bits):
+            if self._accept(row, int(ctrs[i])):
+                return accepted(i, "hard", i + 1)
+
+        # SCL pass over the best rows
+        with Timer("rx.v2.scl"):
+            quality = torch.mean(torch.abs(llr), dim=-1).cpu().numpy()
+            sel = np.argsort(-quality, kind="stable")[:32]
+            res = scl_decode(llr[torch.as_tensor(sel, device=dev)],
+                             self._spec, self._list_size)
+            # (row, list) order, as the paths are opened
+            rr, ll = np.nonzero(res["crc_ok"].cpu().numpy())
+            bits = res["info_bits"][
+                torch.as_tensor(rr, device=dev), torch.as_tensor(ll, device=dev)
+            ].to(torch.uint8).cpu().numpy()
+        for rloc, row in zip(rr, bits):
+            r = int(sel[rloc])
+            if self._accept(row, int(ctrs[r])):
+                return accepted(r, "scl", int(rloc) + 1)
+        return VerifyResult(False, stage=None, peaks=peaks)
+
+    def _accept(self, info_bits: np.ndarray, frame_ctr: int) -> bool:
+        blob = pack_info_bits(info_bits)
+        with Timer("rx.v2.aead_open"):
+            plain, _ = self.sec.open_any_layout(blob)
+        if plain is None or not plain.startswith(MAGIC):
+            return False
+        if int.from_bytes(plain[4:8], "big") != frame_ctr:
+            return False
+        nonce = plain[8:16]
+        if self.session_nonce is None:
+            self.session_nonce = nonce
+            return True
+        return nonce == self.session_nonce

@@ -6,8 +6,14 @@ obeys ``y = T c`` with ``T`` a known lower-triangular Toeplitz matrix.
 Chips are recovered by Tikhonov-regularised least squares
 ``c_hat = (T^T T + lam I)^{-1} T^T y = M y`` with ``M`` designed once per
 band on the host in float64, then refined by hard projection and greedy
-bit-flip descent (see ``refine_chips``).  The physics and the measured
-envelope are documented in ``echoseal_tpu/ops/demod.py``.
+bit-flip descent (see ``refine_chips``).  Two model variants exist:
+``direct`` (T from the TX filter alone, window = the 1215 frame samples;
+best chip SNR on clean hosts) and ``cascade`` (the stream is band-pass
+filtered again at RX and T models the TX*RX cascade, window extended by
+``CASCADE_TAIL`` samples; robust to loud out-of-band hosts).  The batch
+stage uses the direct model only; the single-clip scan scores both and
+lets the FEC decide.  The physics and the measured envelope are
+documented in ``echoseal_tpu/ops/demod.py``.
 
 Host designs are numpy; the device pieces are plain torch functions that
 run on whatever device their tensors live on.  Every product here is
@@ -34,10 +40,21 @@ from echoseal_torch.core.params import FRAME_LEN, HDR_BITS, HDR_L, HDR_REPEAT, P
 from echoseal_torch.core.sequences import bits_to_bpsk, mls63
 from echoseal_torch.ops import filters
 
+# Demod window: direct uses the exact frame; cascade appends the RX tail.
+CASCADE_TAIL = 512
 W_DIRECT = FRAME_LEN
+W_CASCADE = FRAME_LEN + CASCADE_TAIL
 # lam of the exact-inversion direct profile (the only one the compat
 # batch stage uses)
 LAM_DIRECT = 1e-12
+# Direct-model profiles of the single-clip scan: BOTH use the lam=1e-12
+# exact inversion.  Profile 0 is hard-projection REFINED (see
+# refine_chips), the hard-decision champion on digital-clean clips;
+# profile 1 stays RAW, because the raw LS amplitudes carry the per-chip
+# confidence the soft (SCL) pass needs: refinement anchors every chip to
+# +-amp, which turns erasures into confidently wrong bits.
+LAM_DIRECT_PROFILES = (LAM_DIRECT, LAM_DIRECT)
+LAM_CASCADE = 1e-10
 
 # offsets searched around each sync peak (chip-accurate alignment)
 SYNC_OFFSETS = (-2, -1, 0, 1, 2)
@@ -68,6 +85,29 @@ def demod_matrix_direct(lo: float, hi: float, fs: int,
 
 
 @lru_cache(maxsize=32)
+def demod_matrix_cascade(lo: float, hi: float, fs: int,
+                         lam: float = LAM_CASCADE,
+                         tail: int = CASCADE_TAIL) -> np.ndarray:
+    """(FRAME_LEN, FRAME_LEN + tail) float32 matrix for the TX*RX cascade.
+
+    Column j of the model = the RX-filtered version of chip j's TX waveform
+    *as truncated at the frame boundary* (the embedder cuts each frame's
+    filter tail at 1215 samples before the next frame begins).
+    """
+    b, a = filters.butter_coeffs(lo, hi, fs)
+    g = _tx_ir(lo, hi, fs)
+    W = FRAME_LEN + tail
+    T = np.zeros((W, FRAME_LEN))
+    for j in range(FRAME_LEN):
+        tx_col = g[: FRAME_LEN - j]
+        T[j:, j] = lfilter(b, a, np.concatenate(
+            [tx_col, np.zeros(W - j - tx_col.size)]))
+    A = T.T @ T + lam * np.eye(FRAME_LEN)
+    M = sla.cho_solve(sla.cho_factor(A), T.T)
+    return M.astype(np.float32)
+
+
+@lru_cache(maxsize=32)
 def forward_matrix_direct(lo: float, hi: float, fs: int) -> np.ndarray:
     """(W_DIRECT, FRAME_LEN) float32 forward model T (chips -> window)."""
     g = _tx_ir(lo, hi, fs)[:FRAME_LEN]
@@ -84,6 +124,19 @@ def all_forward_matrices(fs: int) -> np.ndarray:
     """(4, W_DIRECT, FRAME_LEN) stacked forward models."""
     return np.stack(
         [forward_matrix_direct(lo, hi, fs) for lo, hi in BAND_PLAN])
+
+
+def all_demod_matrices(fs: int) -> tuple[np.ndarray, np.ndarray]:
+    """Stacked matrices: (4, P, 1215, W_DIRECT), (4, 1, 1215, W_CASCADE)."""
+    md = np.stack([
+        np.stack([demod_matrix_direct(lo, hi, fs, lam)
+                  for lam in LAM_DIRECT_PROFILES])
+        for lo, hi in BAND_PLAN
+    ])
+    mc = np.stack([
+        demod_matrix_cascade(lo, hi, fs)[None] for lo, hi in BAND_PLAN
+    ])
+    return md, mc
 
 
 @lru_cache(maxsize=8)
@@ -155,6 +208,24 @@ def normalized_xcorr(x: torch.Tensor, templates: torch.Tensor,
     return corr.div_(energy).reshape(*lead, nb, corr.shape[-1])
 
 
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """Median over the last axis (kept), as ``jnp.median`` computes it.
+
+    An even-length row gives the mean of its two middle values
+    (``torch.median`` would return the lower one).
+    """
+    n = x.shape[-1]
+    v = torch.sort(x, dim=-1).values
+    return (0.5 * v[..., (n - 1) // 2] + 0.5 * v[..., n // 2])[..., None]
+
+
+def cfar_threshold(corr: torch.Tensor) -> torch.Tensor:
+    """median + 4.5 * 1.4826 * MAD over the last axis, capped at 0.95."""
+    med = _median(corr)
+    mad = _median(torch.abs(corr - med)) + 1e-12
+    return torch.clamp(med + 4.5 * 1.4826 * mad, max=0.95)[..., 0]
+
+
 def topk_nms(corr: torch.Tensor, k: int, min_dist: int):
     """Greedy non-max suppression: k exact local maxima, descending value.
 
@@ -176,6 +247,16 @@ def topk_nms(corr: torch.Tensor, k: int, min_dist: int):
     return (torch.cat(idx, -1).to(torch.int32), torch.cat(val, -1))
 
 
+def gather_windows(x: torch.Tensor, starts: torch.Tensor,
+                   width: int) -> torch.Tensor:
+    """Gather (N,) start indices -> (N, width) windows from 1-D ``x``.
+
+    Starts are clipped to keep windows in range (callers pad the signal so
+    clipping only affects degenerate peaks near the edges).
+    """
+    return slice_windows(x, starts.reshape(-1), width)
+
+
 def _band_major(t: torch.Tensor) -> torch.Tensor:
     """(B, F, N, W) -> (F, B*N, W)."""
     return t.transpose(0, 1).reshape(t.shape[1], -1, t.shape[-1])
@@ -190,6 +271,19 @@ def demod_chips(windows: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     """(B, F, N, W) windows x (F, FRAME_LEN, W) matrices -> (B, F, N, 1215)."""
     return _batch_major(_band_major(windows) @ M.transpose(1, 2),
                         windows.shape[0])
+
+
+def ls_demod(win: torch.Tensor, m_stack: torch.Tensor) -> torch.Tensor:
+    """(B, 4, K, W) windows x (4, NP, C, W) LS stack -> (B, 4, NP, K, C).
+
+    JAX's ``einsum("bfkw,fpcw->bfpkc")`` as ONE band-batched float32
+    matmul (4, B*K, W) @ (4, W, NP*C); the stack is read in place, never
+    broadcast against the rows.
+    """
+    B, nb, K, W = win.shape
+    _, NP, C, _ = m_stack.shape
+    out = _band_major(win) @ m_stack.reshape(nb, NP * C, W).transpose(1, 2)
+    return out.reshape(nb, B, K, NP, C).permute(1, 0, 3, 2, 4).contiguous()
 
 
 def refine_chips(windows: torch.Tensor, chips: torch.Tensor,

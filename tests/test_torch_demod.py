@@ -19,6 +19,7 @@ from echoseal_torch.core.params import FRAME_LEN, HDR_L, PRE_L
 from echoseal_torch.ops import demod as P
 from echoseal_torch.ops import llr as L
 from echoseal_tpu.ops import demod as J
+from torch_port_util import two_torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 FS = 48_000

@@ -26,6 +26,7 @@ from echoseal_torch.ops import polar as ppolar
 from echoseal_tpu.models import embedder as jemb
 from echoseal_tpu.ops import filters as jf
 from echoseal_tpu.ops import polar as jpolar
+from torch_port_util import two_torch_threads  # noqa: F401
 
 FS = 48_000
 GOLD = np.load(Path(__file__).parent / "golden" / "reference_vectors.npz")

@@ -29,6 +29,7 @@ from echoseal_torch.models import pipeline as PP
 from echoseal_torch.models.embedder import frames_np
 from echoseal_tpu.models.embedder import BatchEmbedder
 from echoseal_tpu.models.pipeline import BatchVerifier as JVerifier
+from torch_port_util import two_torch_threads  # noqa: F401
 
 FS = 48_000
 T = 3 * FS

@@ -12,6 +12,7 @@ import torch
 
 from echoseal_torch.ops import polar as P
 from echoseal_tpu.ops import polar as J
+from torch_port_util import two_torch_threads  # noqa: F401
 
 GOLD = np.load(Path(__file__).parent / "golden" / "reference_vectors.npz")
 

@@ -26,6 +26,7 @@ from echoseal_torch.utils import channels as pchannels
 from echoseal_tpu.models import pipeline as JPL
 from echoseal_tpu.models import robust as jrobust
 from echoseal_tpu.utils import channels as jchannels
+from torch_port_util import two_torch_threads  # noqa: F401
 
 FS = 48_000
 T = int(3.5 * FS)

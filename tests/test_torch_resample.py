@@ -13,6 +13,7 @@ from scipy.signal import resample_poly
 
 from echoseal_torch.ops import resample as pr
 from echoseal_tpu.ops import resample as jr
+from torch_port_util import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

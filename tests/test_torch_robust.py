@@ -7,7 +7,16 @@ verifier with ``convert.numpy_tables_of``) go through both verifiers.
 
 What is held, and why (ROADMAP Queue C3):
 
-* Sync, header reads and counters are exact; peak scores within 1e-4.
+* Peak scores within 1e-4, rank by rank.  Peak positions are equal except
+  where two lags tie: over 324 seeds of this corpus one entry differed
+  (seed 230, float32 sync, MP3-sim clip, a band that holds no frame:
+  lags 38902 and 38905 score 4.65395e-4 and differ by 5e-10 in the JAX
+  package and by -1.7e-9 in the port, so each package's argmax takes the
+  other one).  Exact ``peak_idx`` order is therefore not a property of
+  either package.  Held instead: where the positions differ, the port's
+  own scores at the two lags are within 1e-4 of each other; header reads,
+  counters and chips are compared peak by peak after matching the peaks
+  by position.
 * Chips: the LS product sums 9720 float32 terms in another order, so each
   chip is held within 1e-4 of its row's largest chip (the lam=1e-6 rows of
   non-frame windows reach |chip| ~ 800).
@@ -35,6 +44,7 @@ from echoseal_tpu.core import profiles as jprof
 from echoseal_tpu.models import pipeline as JPL
 from echoseal_tpu.models import robust as jrobust
 from echoseal_tpu.utils import channels
+from torch_port_util import two_torch_threads  # noqa: F401
 
 FS = 48_000
 T = int(3.5 * FS)
@@ -46,15 +56,25 @@ DECODE_KEYS = ("hdr_ok", "hdr_lo16", "ctr", "crc_ok", "ok", "blob",
                "blob_ctr", "scl_ctr")
 
 
-@pytest.fixture(scope="module")
-def v2_batch(key32):
-    """4 v2 clips: clean loud-host, MP3-sim, silence+AWGN(+4dB), no wm."""
+TIE_SEED = 230      # the corpus seed whose float32 sync ties two lags
+
+
+def v2_corpus(key32, seed: int):
+    """4 v2 clips: clean loud-host, MP3-sim, silence+AWGN(+4dB), no wm.
+
+    Every random byte of the two streams comes from ``seed`` through the
+    port's ``RobustEmbedder(rng=...)``, which is bit-equal to the JAX TX
+    (``test_embedder_matches_jax_with_pinned_randomness``), so both
+    packages see the same clips on every run.
+    """
     host = (0.15 * np.sin(2 * np.pi * 700 * np.arange(T) / FS)
             ).astype(np.float32)
-    tx_loud = jrobust.RobustEmbedder(key32)
+    tx_loud = probust.RobustEmbedder(key32,
+                                     rng=np.random.default_rng(2 * seed))
     tx_loud._session_nonce = b"sessionA"
     wm_loud = tx_loud.process(host)
-    tx_sil = jrobust.RobustEmbedder(key32)
+    tx_sil = probust.RobustEmbedder(key32,
+                                    rng=np.random.default_rng(2 * seed + 1))
     tx_sil._session_nonce = b"sessionB"
     wm_sil = tx_sil.process(np.zeros(T, np.float32))
     rms = float(np.sqrt(np.mean(wm_sil**2)))
@@ -66,6 +86,11 @@ def v2_batch(key32):
         T).astype(np.float32)
     clips[3, :T] = 0.05 * rng.standard_normal(T).astype(np.float32)
     return clips, np.full(4, T, dtype=np.int32)
+
+
+@pytest.fixture(scope="module")
+def v2_batch(key32):
+    return v2_corpus(key32, 0)
 
 
 @pytest.fixture(scope="module")
@@ -86,13 +111,16 @@ def stages(both, v2_batch):
 
     def get(sync_dtype):
         if sync_dtype not in cache:
-            cache[sync_dtype] = (
-                {k: np.asarray(v) for k, v in
-                 jv.run_device(clips, nv, sync_dtype=sync_dtype).items()},
-                {k: v.numpy() for k, v in
-                 pv.run_device(clips, nv, sync_dtype=sync_dtype).items()})
+            cache[sync_dtype] = _run_both(jv, pv, clips, nv, sync_dtype)
         return cache[sync_dtype]
     return get
+
+
+def _run_both(jv, pv, clips, nv, sync_dtype):
+    return ({k: np.asarray(v) for k, v in
+             jv.run_device(clips, nv, sync_dtype=sync_dtype).items()},
+            {k: v.numpy() for k, v in
+             pv.run_device(clips, nv, sync_dtype=sync_dtype).items()})
 
 
 def _no_headers(self, raw):
@@ -170,16 +198,56 @@ def test_embedder_matches_jax_with_pinned_randomness(key32, monkeypatch):
 
 
 # -------------------------------------------------------------- the stage
-@pytest.mark.parametrize("sync_dtype", ["f32", "bf16"])
-def test_stage_sync_header_and_chips_match(stages, sync_dtype):
-    jo, po = stages(sync_dtype)
-    for k in INT_KEYS:
-        np.testing.assert_array_equal(po[k], jo[k], err_msg=k)
+def _match_peaks(jo, po, clips, pv, sync_dtype):
+    """Port rank of each JAX peak (same position), -1 where unmatched.
+
+    Where the two packages' positions differ at a rank, the port's own
+    scores at the two lags must tie within 1e-4.
+    """
+    j_idx, p_idx = jo["peak_idx"], po["peak_idx"]
+    for i, b, k in np.argwhere(p_idx != j_idx):
+        corr = PP.demod.normalized_xcorr(
+            torch.from_numpy(clips[i]), pv.tables["templates"],
+            compute_dtype=None if sync_dtype == "f32"
+            else PP.resolve_sync_dtype(sync_dtype))[b]
+        gap = abs(float(corr[j_idx[i, b, k]]) - float(corr[p_idx[i, b, k]]))
+        assert gap <= 1e-4, (i, b, k, j_idx[i, b, k], p_idx[i, b, k], gap)
+    same = j_idx[..., :, None] == p_idx[..., None, :]    # (B, 4, Kj, Kp)
+    return np.where(same.any(-1), same.argmax(-1), -1)
+
+
+STAGE_CASES = [("f32", 0), ("bf16", 0), ("f32", TIE_SEED)]
+
+
+@pytest.mark.parametrize(
+    "sync_dtype,seed", STAGE_CASES,
+    ids=[d if s == 0 else f"{d}-seed{s}" for d, s in STAGE_CASES])
+def test_stage_sync_header_and_chips_match(key32, both, stages, v2_batch,
+                                           sync_dtype, seed):
+    if seed == 0:
+        clips, _ = v2_batch
+        jo, po = stages(sync_dtype)
+    else:
+        clips, nv = v2_corpus(key32, seed)
+        jo, po = _run_both(*both, clips, nv, sync_dtype)
     np.testing.assert_allclose(po["peak_val"], jo["peak_val"], **TOL)
+    rank = _match_peaks(jo, po, clips, both[1], sync_dtype)
+    matched = rank >= 0
+    # almost every peak has its twin; the ties are a handful at most
+    assert matched.mean() >= 0.95
+    if seed == 0:
+        assert matched.all()     # this corpus has no tie: exact positions
+    take = np.maximum(rank, 0)
     assert po["chips"].shape == jo["chips"].shape == (4, 4, 2, 4, 1215)
-    row_err = np.abs(po["chips"] - jo["chips"]).max(-1)
-    assert np.all(row_err <= 1e-4 * np.abs(jo["chips"]).max(-1)), \
-        row_err.max()
+    for k in ("hdr_ok", "hdr_lo16", "ctr"):      # (B, 4, NP, K)
+        got = np.take_along_axis(po[k], take[:, :, None, :], axis=-1)
+        ok = matched[:, :, None, :]
+        np.testing.assert_array_equal(np.where(ok, got, 0),
+                                      np.where(ok, jo[k], 0), err_msg=k)
+    chips = np.take_along_axis(po["chips"], take[:, :, None, :, None], axis=3)
+    row_err = np.abs(chips - jo["chips"]).max(-1)
+    lim = 1e-4 * np.abs(jo["chips"]).max(-1)
+    assert np.all((row_err <= lim) | ~matched[:, :, None, :]), row_err.max()
     assert po["host_packed"].shape == (4, 65)
 
 

@@ -21,6 +21,7 @@ from echoseal_torch.ops import scl as pscl
 from echoseal_tpu.core import profiles as jprof
 from echoseal_tpu.ops import polar as jpolar
 from echoseal_tpu.ops import scl as jscl
+from torch_port_util import two_torch_threads  # noqa: F401
 
 
 def _specs(which):
