@@ -11,8 +11,12 @@ line):
 2. kernel build: every ``echoseal_torch/csrc/*.cu`` with nvcc, in parallel;
 3. kernels: each kernel's wrapper against its plain torch version on the
    card at the batch paths' shapes, at the single-clip paths' row counts
-   (37 and 800) and at a ragged one, with CUDA-event times and the
-   memory/compute bound;
+   (37 and 800) and at a ragged one, with the memory/compute bound.  Each
+   timed launch has a ~200 µs ``torch.cuda._sleep`` queued before its
+   start event, so the card is still busy while the host runs the
+   wrapper's checks and its ``ctypes`` launch, and the CUDA events bracket
+   the kernel alone; the wrapper's host launch path is a separate
+   host-clock reading (``launch_host_us``);
 4. compat main path at full width: a 4096-frame stream from the port's
    host TX (every random byte drawn from ``SEED``), B = 1024 clips of 3 s
    at 48 kHz cut at frame-aligned random starts,
@@ -84,7 +88,42 @@ line):
     marginal frame's hard decode can tip between two float32
     implementations of the lam=1e-12 inversion: then each side's counter
     must be the one its peak position implies.  The line counts the clips
-    whose fields are all equal.
+    whose fields are all equal;
+20. impaired captures, compat and v2 tone host (the set-up of
+    ``benchmarks/impaired_bench.py``), B = 1024 clips of 3.5 s in rows of
+    184 320 unless named: compat clean (accept 1.0), MP3-sim, AWGN +6 and
+    -15 dB, +3.1 % speed and reverb (6 dB, 150 ms) on 128 clips (each
+    0.0); v2 on the phase-7 stream: MP3-sim, AWGN +6 and -15 dB (0.0, they
+    are clip-relative), AWGN at +6 dB re the watermark and reverb on 128
+    (each >= 0.98);
+21. the speech host (``speech_host(12.0, rng=default_rng(77))`` embedded
+    in 1024-sample ``process`` calls): clean (>= 0.80) and MP3-sim at
+    B = 1024, reverb on 128, the real Layer III codec at 128 kbps on 32,
+    +3.1 % speed through ``verify_batch_recover`` on 128, a wrong key at
+    1024 (0.0); each row beside the JAX package's TPU number;
+22. real codecs in the geometry of ``benchmarks/codec_envelope.py``: 4 s
+    cuts of a 700 Hz host, 16 draws (8 on a host with fewer than 16
+    cores) through mu-law, A-law, IMA ADPCM, ``ratecv`` to 44.1 kHz,
+    Layer II and Layer III at 64 and 128 kbps; each row through
+    ``RobustVerifier`` clip by clip (all but one draw must verify) and 2
+    draws under a wrong key (none may), then all of them through
+    ``RobustBatchVerifier.verify_batch`` as one batch per capture rate;
+23. 4 clips each of tone-host MP3-sim, tone-host reverb and speech-host
+    clean through ``RobustBatchVerifier`` on the card and on the CPU:
+    verdicts and accepting stage row-identical; on the card
+    ``frozen_check.audit()``, ``pn_check``, ``polar_roundtrip`` (16
+    trials, L = 8), and ``stage_compare`` (v2 through MP3-sim, compat)
+    against its CPU run: bools, integers and strings equal, floats within
+    1e-3 (compat demod, header and LLR scores 0.01).
+
+The host impairments of phases 20-22 run in a pool of ``os.cpu_count()``
+worker processes (one BLAS thread each), every row's jobs queued at the
+start of phase 20, so later rows are staged while the card verifies
+earlier ones; the diagnostics of phase 23, which need no staging, run
+first, while the workers start.  Each row prints its accept rate, ``n``,
+verify seconds, audio seconds per second, the SCL rungs' seconds, kernel
+launches, peak memory, the workers' summed staging seconds and the
+seconds the row waited for them.
 
 Before the last line it prints ``{"kernels": [...]}``: each kernel at the
 v2 path's shape, with its launches counted over every main path (each
@@ -93,11 +132,18 @@ path driven with the counts set to 0 just before it).  The last line is
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import shared_memory
+from pathlib import Path
 
 import numpy as np
 
@@ -139,6 +185,19 @@ MIXED_GATE = 0.9
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BUSY_US = 200.0               # phase 3: card kept busy this long per launch
+N_SUB = 128                   # reverb and speech time-scale sub-batches
+N_L3 = 32                     # speech host through the real Layer III codec
+IMPAIRED_GATE = 0.98          # tone-host v2: MP3-sim, reverb, wm+6 dB AWGN
+SPEECH_GATE = 0.80            # speech-host v2, clean
+CODEC_T = 4 * FS              # codec rows: 4 s clips (codec_envelope.py)
+CODEC_DRAWS = 16 if (os.cpu_count() or 1) >= 16 else 8
+N_WRONG_DRAWS = 2             # codec draws per row verified under a wrong key
+CODEC_WIDTH = {48_000: 204_800, 44_100: 188_160}   # 188 160 ingests to 204 800
+CODECS = (("ulaw", "ulaw", None), ("alaw", "alaw", None),
+          ("adpcm", "adpcm", None), ("ratecv_44k1_capture", "ratecv", 44_100),
+          ("mpeg1_l2@64k", "l2", 64), ("mpeg1_l2@128k", "l2", 128),
+          ("mpeg1_l3@64k", "l3", 64), ("mpeg1_l3@128k", "l3", 128))
 
 
 def emit(obj) -> None:
@@ -151,13 +210,39 @@ def check(cond, msg: str) -> None:
         raise SystemExit(1)
 
 
-def cuda_ms(fn, torch, n: int = 25, flush=None) -> float:
-    """Median CUDA-event time of ``fn`` over ``n`` launches (after a warm-up)."""
+def busy_cycles(torch, us: float = BUSY_US) -> tuple[int, float]:
+    """``torch.cuda._sleep`` cycles that keep the card busy ``us`` µs.
+
+    The sleep kernel spins on the SM clock, so the cycles per µs are the
+    clock's MHz: read here from one timed 10**7-cycle sleep.  Returns
+    (cycles, the measured MHz).
+    """
+    torch.cuda._sleep(1000)                     # load the kernel
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10 ** 7)
+    b.record()
+    torch.cuda.synchronize()
+    mhz = 10 ** 7 / (a.elapsed_time(b) * 1e3)
+    return int(us * mhz), mhz
+
+
+def cuda_ms(fn, torch, n: int = 25, flush=None, busy: int = 0) -> float:
+    """Median CUDA-event time of ``fn`` over ``n`` launches (after a warm-up).
+
+    With ``busy`` cycles, a ``torch.cuda._sleep`` is queued before the
+    start event, so the card is still busy while the host runs ``fn``'s
+    Python and launch path: the event pair then brackets the device work
+    alone, not the host's way to it.
+    """
     fn()
     times = []
     for _ in range(n):
         if flush is not None:
             flush.zero_()              # evict L2 (50 MB) between launches
+        if busy:
+            torch.cuda._sleep(busy)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -166,6 +251,20 @@ def cuda_ms(fn, torch, n: int = 25, flush=None) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_us(fn, torch, n: int = 25) -> float:
+    """Median host-clock µs of ``fn`` returning (its launch path; the
+    card drained between calls)."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
 
 
 def stage_ms(start, marks) -> dict[str, float]:
@@ -185,6 +284,7 @@ def kernel_phase(torch, llr, flush):
     """
     from echoseal_torch.core.params import FRAME_LEN
 
+    busy, mhz = busy_cycles(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     entry, max_err = None, 0.0
     for lead in ((13,), (37,), (800,), (B, 4, PEAKS), (B, 4, V2_NP, V2_PEAKS)):
@@ -206,13 +306,17 @@ def kernel_phase(torch, llr, flush):
             n_ops = 12 * n * 1024               # ~12 fp32 ops per element
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+            launch_us = host_us(lambda: llr.payload_llr(chips, pn), torch)
             line.update(
                 ms=cuda_ms(lambda: llr.payload_llr(chips, pn), torch,
-                           flush=flush),
+                           flush=flush, busy=busy),
                 plain_ms=cuda_ms(lambda: llr.payload_llr_plain(chips, pn),
-                                 torch, flush=flush),
+                                 torch, flush=flush, busy=busy),
                 bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                launch_host_us=launch_us,
+                busy_us=BUSY_US, busy_cycles=busy, sm_mhz_measured=mhz,
+                queue_kept_busy=launch_us < BUSY_US)
         emit(line)
         if len(lead) == 4:
             entry = {
@@ -1208,6 +1312,562 @@ def device_pair_phase(torch, card, compat_stream, v2_stream):
     emit(line)
 
 
+# ======================================================================
+# phases 20-23: impaired captures through the batch tier
+# ======================================================================
+def _impair(channels, kind: str, arg, x: np.ndarray, rng) -> np.ndarray:
+    """One host impairment of ``benchmarks/impaired_bench.py`` or
+    ``benchmarks/codec_envelope.py`` on one clip."""
+    if kind == "sim":
+        return channels.codec_sim(x, 128.0)[:x.size]
+    if kind == "awgn":
+        return channels.awgn(x, arg, rng)
+    if kind == "timescale":
+        return channels.time_scale(x, arg)
+    if kind == "reverb":
+        return channels.reverb(x, 150.0, direct_to_reverb_db=6.0, rng=rng)
+    if kind == "l2":
+        return channels.codec_mpeg1_l2(x, arg)[:x.size]
+    if kind == "l3":
+        return channels.codec_mpeg1_l3(x, arg)[:x.size]
+    if kind == "ratecv":
+        return channels.codec_ratecv(x, FS, arg)
+    return getattr(channels, f"codec_{kind}")(x)      # ulaw, alaw, adpcm
+
+
+def _shared(name: str, shape):
+    """(segment, float32 array on it) of a shared-memory block."""
+    shm = shared_memory.SharedMemory(name=name)
+    return shm, np.ndarray(shape, np.float32, buffer=shm.buf)
+
+
+def _stage_job(kind: str, arg, src, lo: int, hi: int, dst, seed: int):
+    """Worker process: impair rows ``lo:hi`` of the shared base ``src``
+    into the same rows of the shared output ``dst`` (each a (name, shape)
+    pair), zero-padded.  Returns (lengths, seconds, wall-clock start,
+    wall-clock end); no clip crosses the pipe."""
+    from echoseal_torch.utils import channels
+
+    w0, t0 = time.time(), time.perf_counter()
+    s_shm, base = _shared(*src)
+    d_shm, out = _shared(*dst)
+    rng = np.random.default_rng(seed)
+    lengths = []
+    for i in range(lo, hi):
+        y = _impair(channels, kind, arg, base[i].copy(), rng)
+        L = min(y.size, out.shape[1])
+        out[i, :L] = y[:L]
+        lengths.append(L)
+    del base, out
+    s_shm.close()
+    d_shm.close()
+    return lengths, time.perf_counter() - t0, w0, time.time()
+
+
+@contextlib.contextmanager
+def _one_thread_workers():
+    """One BLAS/OpenMP thread in each worker spawned inside the block.
+
+    The workers load numpy with the environment they are spawned with;
+    with the default (one thread per core) eight workers kept 64 BLAS
+    threads spinning on eight cores, starving the host thread that
+    feeds the card.
+    """
+    keys = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update({k: "1" for k in keys})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+class Stager:
+    """Host impairment staging over a process pool, one row at a time.
+
+    Every row's jobs are submitted up front, in the order the rows are
+    verified, so the workers stage later rows while the card verifies
+    earlier ones.  Clips move through shared memory, not the pool's
+    pipes: pickling them through the parent took its interpreter lock
+    from the thread that feeds the card's eager SCL decoder.  ``take``
+    returns a row's clips zero-padded to its width, their valid lengths,
+    and the row's staging record: the workers' summed seconds, the
+    seconds the caller waited, and when the row's first job started and
+    its last ended, in seconds from the pool's creation.  ``close``
+    frees every segment.
+    """
+
+    def __init__(self, pool) -> None:
+        self.pool = pool
+        self.t0 = time.time()
+        self.rows: dict[str, tuple] = {}
+        self.bases: list = []
+
+    def share(self, arr: np.ndarray):
+        """Copy ``arr`` into a shared segment; returns its (name, shape)."""
+        shm = shared_memory.SharedMemory(create=True, size=arr.nbytes)
+        np.ndarray(arr.shape, np.float32, buffer=shm.buf)[:] = arr
+        self.bases.append(shm)
+        return shm.name, arr.shape
+
+    def submit(self, row: str, kind: str, arg, src, n: int, width: int,
+               seed: int, chunk: int) -> None:
+        out = shared_memory.SharedMemory(create=True, size=n * width * 4)
+        dst = (out.name, (n, width))
+        self.rows[row] = (out, dst[1], [
+            self.pool.submit(_stage_job, kind, arg, src, i,
+                             min(i + chunk, n), dst, seed + i)
+            for i in range(0, n, chunk)])
+
+    def take(self, row: str):
+        out, shape, futures = self.rows.pop(row)
+        t0 = time.perf_counter()
+        parts = [f.result() for f in futures]
+        wait_s = time.perf_counter() - t0
+        clips = np.ndarray(shape, np.float32, buffer=out.buf).copy()
+        out.close()
+        out.unlink()
+        nv = np.array([L for p in parts for L in p[0]], np.int32)
+        stage = {"stage_cpu_s": sum(p[1] for p in parts),
+                 "stage_wait_s": wait_s,
+                 "stage_first_start_s": min(p[2] for p in parts) - self.t0,
+                 "stage_last_end_s": max(p[3] for p in parts) - self.t0}
+        return clips, nv, stage
+
+    def close(self) -> None:
+        for shm in self.bases + [r[0] for r in self.rows.values()]:
+            shm.close()
+            shm.unlink()
+        self.bases, self.rows = [], {}
+
+
+def _pad(base: np.ndarray, width: int):
+    clips = np.zeros((base.shape[0], width), np.float32)
+    clips[:, :base.shape[1]] = base
+    return clips, np.full(base.shape[0], base.shape[1], np.int32)
+
+
+def _verify_row(torch, verifier, clips: np.ndarray, nv: np.ndarray, *,
+                recover: bool = False, fs_in: int | None = None):
+    """One row on the card: (verdicts, details, measured fields)."""
+    from echoseal_torch.ops import build
+
+    x = torch.from_numpy(clips).cuda()
+    rungs = hasattr(verifier, "scl_rungs")
+    if rungs:
+        verifier.scl_rungs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    details = {}
+    t0 = time.perf_counter()
+    if recover:
+        v = verifier.verify_batch_recover(x, nv)
+    elif fs_in is not None:
+        v = verifier.verify_batch(x, nv, fs_in=fs_in, details=details)
+    else:
+        v = verifier.verify_batch(x, nv, details=details)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    audio_s = float(np.sum(nv)) / (fs_in or FS)
+    line = {"n": int(v.size), "accept": float(v.mean()), "verify_s": s,
+            "audio_s_per_s": audio_s / s,
+            "launches": build.LAUNCHES.get("payload_llr", 0),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if recover:
+        log = verifier.recover_log
+        line.update(scl_s=sum(r["scl_s"] for r in log["rounds"]),
+                    rounds_run=len(log["rounds"]),
+                    deferred_s=log["deferred_s"])
+    else:
+        line["stages"] = {st: sum(d.stage == st for d in details.values())
+                          for st in ("hard", "scl", "ext_ctr")}
+        if rungs:
+            line.update(scl_s=sum(r[3] for r in verifier.scl_rungs),
+                        scl_rungs=[{"rows": r, "L": L, "n_rows": n, "s": t}
+                                   for r, L, n, t in verifier.scl_rungs])
+    del x
+    return v, details, line
+
+
+def _jax_rows() -> dict:
+    """The JAX package's rows on the TPU, reported beside the port's."""
+    root = Path(__file__).resolve().parent / "benchmarks"
+    imp = json.loads((root / "impaired_1k.json").read_text())
+    env = json.loads((root / "codec_envelope.json").read_text())
+    return {"compat": imp["compat"],
+            "v2_tone": imp["robust_v2(loud tone host)"],
+            "v2_speech": imp["robust_v2(speech host)"],
+            "codec": env["v2"]}
+
+
+def _jax_accept(table: dict, row: str):
+    for k, v in table.items():
+        if k == row or (row.startswith("awgn(wm") and k.startswith("awgn(wm")):
+            return v.get("accept")
+    return None
+
+
+def impaired_setup(host_frames, v2_stream, st):
+    """Bases of phases 20-22 and every staging job, submitted in the
+    order the rows are verified."""
+    from echoseal_torch.core.params import FRAME_LEN, TxParams
+    from echoseal_torch.models.robust import RobustEmbedder
+    from echoseal_torch.utils import channels
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 10)
+    # compat: frame-aligned 3.5 s cuts of the phase-4 stream at the floor
+    n_frames = -(-T35 // FRAME_LEN)
+    flat = host_frames.reshape(-1) * 10.0 ** (TxParams().floor_rel_dbfs / 20)
+    starts = rng.integers(0, host_frames.shape[0] - n_frames, B) * FRAME_LEN
+    compat = np.stack([flat[s:s + T35] for s in starts]).astype(np.float32)
+    # v2 tone host: 3.5 s cuts of the phase-7 stream
+    starts = rng.integers(0, v2_stream.size - T35, B)
+    tone = np.stack([v2_stream[s:s + T35] for s in starts])
+    host = (0.15 * np.sin(2 * np.pi * 700 * np.arange(STREAM_S_V2 * FS) / FS)
+            ).astype(np.float32)
+    wm_pow = float(np.mean((v2_stream[:host.size] - host) ** 2))
+    delta_db = 10.0 * np.log10(float(np.mean(host ** 2)) / wm_pow)
+    # speech host, embedded block-wise as the live TX path does
+    speech = channels.speech_host(12.0, FS, rng=np.random.default_rng(77))
+    tx = RobustEmbedder(KEY, rng=np.random.default_rng(SEED + 11))
+    sp_stream = np.concatenate([tx.process(speech[i:i + 1024])
+                                for i in range(0, speech.size, 1024)])
+    starts = rng.integers(0, sp_stream.size - T35, B)
+    sp = np.stack([sp_stream[s:s + T35] for s in starts])
+    # codec draws: 4 s cuts of a 6 s 700 Hz host, a new session per draw
+    host6 = (0.15 * np.sin(2 * np.pi * 700 * np.arange(CODEC_T + 2 * FS)
+                           / FS)).astype(np.float32)
+    draws = []
+    for k in range(CODEC_DRAWS):
+        tx = RobustEmbedder(KEY, rng=np.random.default_rng(SEED + 100 + k))
+        tx._session_nonce = bytes([0x40 + k]) * 8
+        wm = tx.process(host6)
+        s = int(np.random.default_rng(k).integers(0, wm.size - CODEC_T))
+        draws.append(wm[s:s + CODEC_T])
+    draws = np.stack(draws)
+    bases = {"compat": compat, "tone": tone, "speech": sp, "draws": draws,
+             "setup_s": time.perf_counter() - t0, "delta_db": delta_db}
+
+    src = {k: st.share(v) for k, v in (("compat", compat), ("tone", tone),
+                                       ("speech", sp), ("draws", draws))}
+    wm_row = f"awgn(wm+6dB={6 + delta_db:.0f}dB-clip)"
+    jobs = [("compat", "mp3-128k(sim)", "sim", None, "compat", B, 64),
+            ("compat", "awgn+6dB", "awgn", 6.0, "compat", B, 128),
+            ("compat", "awgn-15dB", "awgn", -15.0, "compat", B, 128),
+            ("compat", "timescale+3.1%", "timescale", SCALE, "compat", B, 128),
+            ("compat", "reverb(6dB,150ms)", "reverb", None, "compat", N_SUB,
+             4),
+            ("v2_tone", "mp3-128k(sim)", "sim", None, "tone", B, 64),
+            ("v2_tone", "awgn+6dB", "awgn", 6.0, "tone", B, 128),
+            ("v2_tone", "awgn-15dB", "awgn", -15.0, "tone", B, 128),
+            ("v2_tone", wm_row, "awgn", 6.0 + delta_db, "tone", B, 128),
+            ("v2_tone", "reverb(6dB,150ms)", "reverb", None, "tone", N_SUB, 4),
+            ("v2_speech", "mp3-128k(sim)", "sim", None, "speech", B, 64),
+            ("v2_speech", "reverb(6dB,150ms)", "reverb", None, "speech",
+             N_SUB, 4),
+            ("v2_speech", "mp3-128k(l3-real)", "l3", 128, "speech", N_L3, 1),
+            ("v2_speech", "timescale+3.1%", "timescale", SCALE, "speech",
+             N_SUB, 32)]
+    for name, kind, arg in CODECS:
+        jobs.append(("codec", name, kind, arg, "draws", CODEC_DRAWS, 1))
+    for i, (tier, row, kind, arg, base, n, chunk) in enumerate(jobs):
+        width = CODEC_WIDTH[44_100 if kind == "ratecv" else FS] \
+            if tier == "codec" else TPAD_REC
+        st.submit(f"{tier}/{row}", kind, arg, src[base], n, width,
+                  SEED + 1000 * i, chunk)
+    return bases, wm_row
+
+
+def _row_line(card, tier, row, line, stage=None, gate=None, jax=None):
+    emit({"phase": "impaired_row", "card": card, "tier": tier, "row": row,
+          **line, "gate": gate, "jax_accept_tpu": jax, **(stage or {}),
+          "cpu_count": os.cpu_count()})
+
+
+def clean_rows(torch, card, bv, rv, bases, jax_rows):
+    """The rows of phases 20-21 that need no staging, run while the
+    workers stage the others: compat clean, speech clean, speech under a
+    wrong key.  Returns (compat launches, speech launches, 4 clean speech
+    clips for phase 23)."""
+    from echoseal_torch.models import pipeline as pl
+
+    clips, nv = _pad(bases["compat"], TPAD_REC)
+    v, _, line = _verify_row(torch, bv, clips, nv)
+    _row_line(card, "compat", "clean", line, gate=1.0,
+              jax=_jax_accept(jax_rows["compat"], "clean"))
+    check(line["accept"] == 1.0, f"compat clean accept {line['accept']}")
+    compat = line["launches"]
+    table = jax_rows["v2_speech"]
+    clips, nv = _pad(bases["speech"], TPAD_REC)
+    v, _, line = _verify_row(torch, rv, clips, nv)
+    _row_line(card, "v2_speech", "clean", line, gate=SPEECH_GATE,
+              jax=_jax_accept(table, "clean"))
+    check(line["accept"] >= SPEECH_GATE,
+          f"speech clean accept {line['accept']} < {SPEECH_GATE}")
+    speech = line["launches"]
+    keep = (clips[:N_DEVICE_PAIR].copy(), nv[:N_DEVICE_PAIR])
+    bad = pl.RobustBatchVerifier(BAD_KEY)
+    v, _, line = _verify_row(torch, bad, clips, nv)
+    del bad
+    _row_line(card, "v2_speech", "wrong-key", line, gate=0.0,
+              jax=_jax_accept(table, "wrong-key"))
+    check(line["accept"] == 0.0, f"speech wrong key accept {line['accept']}")
+    return compat, speech + line["launches"], keep
+
+
+def impaired_compat_phase(torch, card, bv, st, jax_rows):
+    """Phase 20a: the staged compat rows; returns their kernel launches."""
+    launches = 0
+    for row in ("mp3-128k(sim)", "awgn+6dB", "awgn-15dB", "timescale+3.1%",
+                "reverb(6dB,150ms)"):
+        clips, nv, stage = st.take(f"compat/{row}")
+        v, _, line = _verify_row(torch, bv, clips, nv)
+        _row_line(card, "compat", row, line, stage, gate=0.0,
+                  jax=_jax_accept(jax_rows["compat"], row))
+        check(line["accept"] == 0.0,
+              f"compat {row}: accept {line['accept']}, wanted 0.0")
+        launches += line["launches"]
+    return launches
+
+
+def impaired_tone_phase(torch, card, rv, st, wm_row, jax_rows):
+    """Phase 20b: v2 tone-host rows; returns (launches, 4+4 clips kept for
+    phase 23)."""
+    launches, keep = 0, {}
+    for row, gate in (("mp3-128k(sim)", IMPAIRED_GATE), ("awgn+6dB", 0.0),
+                      ("awgn-15dB", 0.0), (wm_row, IMPAIRED_GATE),
+                      ("reverb(6dB,150ms)", IMPAIRED_GATE)):
+        clips, nv, stage = st.take(f"v2_tone/{row}")
+        v, _, line = _verify_row(torch, rv, clips, nv)
+        _row_line(card, "v2_tone", row, line, stage, gate=gate,
+                  jax=_jax_accept(jax_rows["v2_tone"], row))
+        ok = line["accept"] >= gate if gate else line["accept"] == 0.0
+        check(ok, f"v2 tone {row}: accept {line['accept']}, gate {gate}")
+        launches += line["launches"]
+        if row.startswith(("mp3", "reverb")):
+            keep[row] = (clips[:N_DEVICE_PAIR].copy(), nv[:N_DEVICE_PAIR])
+    check(launches > 0, "payload_llr never launched on the v2 tone rows")
+    return launches, keep
+
+
+def impaired_speech_phase(torch, card, rv, st, jax_rows):
+    """Phase 21: the staged speech-host rows; returns their launches."""
+    launches = 0
+    table = jax_rows["v2_speech"]
+    for row in ("mp3-128k(sim)", "reverb(6dB,150ms)", "mp3-128k(l3-real)",
+                "timescale+3.1%"):
+        clips, nv, stage = st.take(f"v2_speech/{row}")
+        v, _, line = _verify_row(torch, rv, clips, nv,
+                                 recover="timescale" in row)
+        jax = _jax_accept(table, row)
+        line["below_jax_by_more_than_0.1"] = (
+            jax is not None and line["accept"] < jax - 0.10)
+        _row_line(card, "v2_speech", row, line, stage, jax=jax)
+        launches += line["launches"]
+    return launches
+
+
+def codec_phase(torch, card, rv, st, jax_rows):
+    """Phase 22: real codecs through ``RobustVerifier`` clip by clip and
+    through ``RobustBatchVerifier`` as one batch; returns launches."""
+    from echoseal_torch.models.robust import RobustVerifier
+    from echoseal_torch.ops import build
+
+    single = RobustVerifier(KEY)
+    wrong = RobustVerifier(BAD_KEY)
+    launches = 0
+    batch = {48_000: [], 44_100: []}
+    rows = {}
+    for name, kind, _ in CODECS:
+        fs_in = 44_100 if kind == "ratecv" else FS
+        out, lengths, stage = st.take(f"codec/{name}")
+        clips = [out[i, :L] for i, L in enumerate(lengths)]
+        build.LAUNCHES.clear()
+        acc, secs = [], []
+        for y in clips:
+            single.session_nonce = None
+            t0 = time.perf_counter()
+            acc.append(bool(single.verify(y, fs_in)))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        wrong_acc = []
+        t0 = time.perf_counter()
+        for y in clips[:N_WRONG_DRAWS]:
+            wrong.session_nonce = None
+            wrong_acc.append(bool(wrong.verify(y, fs_in)))
+        wrong_s = time.perf_counter() - t0
+        n_launch = build.LAUNCHES.get("payload_llr", 0)
+        launches += n_launch
+        batch[fs_in].append((name, out, lengths))
+        rows[name] = {"fs_in": fs_in, "n": len(acc), "accepted": sum(acc),
+                      "accept": sum(acc) / len(acc), "gate": len(acc) - 1,
+                      "verify_p50_ms": 1e3 * float(np.median(secs)),
+                      "verify_max_ms": 1e3 * max(secs),
+                      "wrong_key_accepted": sum(wrong_acc),
+                      "wrong_key_n": len(wrong_acc), "wrong_key_s": wrong_s,
+                      "launches": n_launch, **stage,
+                      "jax_accept_tpu": _jax_accept(jax_rows["codec"], name)}
+        check(sum(acc) >= len(acc) - 1,
+              f"codec {name}: {sum(acc)} of {len(acc)} accepted")
+        check(not any(wrong_acc), f"codec {name}: a wrong key accepted")
+    batch_lines = {}
+    for fs_in, parts in batch.items():
+        clips = np.concatenate([o for _, o, _ in parts])
+        nv = np.concatenate([n for _, _, n in parts])
+        v, _, line = _verify_row(torch, rv, clips, nv,
+                                 fs_in=None if fs_in == FS else fs_in)
+        line["per_row_accept"] = {
+            name: float(v[i * CODEC_DRAWS:(i + 1) * CODEC_DRAWS].mean())
+            for i, (name, _, _) in enumerate(parts)}
+        batch_lines[str(fs_in)] = line
+        launches += line["launches"]
+    emit({"phase": "codec_rows", "card": card, "draws": CODEC_DRAWS,
+          "clip_s": CODEC_T / FS, "cpu_count": os.cpu_count(),
+          "rows": rows, "batch": batch_lines})
+    check(launches > 0, "payload_llr never launched on the codec rows")
+    return launches
+
+
+def _compare_reports(g, c, tol, path="report"):
+    """Bools, integers and strings equal; floats within ``tol(path)``."""
+    if isinstance(c, dict):
+        check(isinstance(g, dict) and g.keys() == c.keys(), f"{path} keys")
+        for k in c:
+            _compare_reports(g[k], c[k], tol, f"{path}.{k}")
+    elif isinstance(c, float):
+        check(abs(g - c) <= tol(path), f"{path}: card {g} cpu {c}")
+    else:
+        check(type(g) is type(c) and g == c, f"{path}: card {g} cpu {c}")
+
+
+@contextlib.contextmanager
+def _pinned_secrets():
+    """Zero bytes for ``secrets.token_bytes``: the stage comparison seals
+    its payloads with random AEAD nonces, and the card and CPU runs must
+    see the same stream."""
+    import secrets
+
+    orig = secrets.token_bytes
+    secrets.token_bytes = lambda n=32: bytes(n)
+    try:
+        yield
+    finally:
+        secrets.token_bytes = orig
+
+
+def _quiet(fn, *args, **kwargs):
+    """(result, stdout) of ``fn``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue()
+
+
+def pair_phase(torch, card, rv, cpu, keep):
+    """Phase 23a: impaired clips through the batch tier on the card and on
+    the CPU; verdicts and accepting stages must be row-identical."""
+    pairs = {}
+    for name, (clips, nv) in keep.items():
+        d_g, d_c = {}, {}
+        v_g = rv.verify_batch(torch.from_numpy(clips).cuda(), nv, details=d_g)
+        t0 = time.perf_counter()
+        v_c = cpu.verify_batch(torch.from_numpy(clips), nv, details=d_c)
+        cpu_s = time.perf_counter() - t0
+        s_g = {i: d.stage for i, d in d_g.items()}
+        s_c = {i: d.stage for i, d in d_c.items()}
+        check(v_g.tolist() == v_c.tolist() and s_g == s_c,
+              f"{name}: card {v_g.tolist()} {s_g}, cpu {v_c.tolist()} {s_c}")
+        pairs[name] = {"verdicts": v_g.tolist(),
+                       "stages": [s_g.get(i) for i in range(len(v_g))],
+                       "equal": True, "cpu_s": cpu_s}
+    emit({"phase": "impaired_gpu_vs_cpu", "card": card,
+          "clips_per_class": N_DEVICE_PAIR, "pairs": pairs})
+
+
+def diagnostics_phase(torch, card):
+    """Phase 23b: the diagnostics on the card, ``stage_compare`` against
+    its CPU run.  Returns their kernel launches."""
+    from echoseal_torch.diagnostics import (
+        frozen_check,
+        pn_check,
+        polar_roundtrip,
+        stage_compare,
+    )
+    from echoseal_torch.ops import build
+
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    audit, _ = _quiet(frozen_check.audit, verbose=True)
+    check(audit is True, "frozen_check.audit() on the card failed")
+    _, pn_out = _quiet(pn_check.main)
+    check("FAIL" not in pn_out and pn_out.count("OK") >= 3,
+          f"pn_check: {pn_out}")
+    _, pr_out = _quiet(polar_roundtrip.main, trials=16, list_size=8)
+    check(len(pr_out.splitlines()) == 9, f"polar_roundtrip: {pr_out}")
+    reports = {}
+    for argv in (["--profile", "v2", "--impair", "mp3"],
+                 ["--profile", "compat"]):
+        with _pinned_secrets():
+            g, _ = _quiet(stage_compare.main, argv + ["--device", "cuda"])
+            c, _ = _quiet(stage_compare.main, argv + ["--device", "cpu"])
+        compat = argv[1] == "compat"
+        _compare_reports(g, c, lambda p: 0.01 if compat and p.split(".")[1]
+                         in ("demod", "header", "llr") else 1e-3)
+        reports[argv[1]] = g
+    launches = build.LAUNCHES.get("payload_llr", 0)
+    check(launches >= 2, f"stage_compare's LLR launches: {launches}")
+    emit({"phase": "diagnostics", "card": card, "frozen_check": audit,
+          "pn_check": pn_out.splitlines(),
+          "polar_roundtrip": pr_out.splitlines(),
+          "stage_compare": reports, "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    return launches
+
+
+def impaired_phases(torch, card, bv, host_frames, rv, cpu, v2_stream):
+    """Phases 20-23; returns {path: kernel launches}.
+
+    The staging jobs are queued first; the diagnostics (23b), which need
+    none, run while the workers start.
+    """
+    t0 = time.perf_counter()
+    jax_rows = _jax_rows()
+    pool = ProcessPoolExecutor(os.cpu_count(),
+                               mp_context=multiprocessing.get_context("spawn"))
+    st = Stager(pool)
+    try:
+        with _one_thread_workers():     # the workers spawn at submission
+            bases, wm_row = impaired_setup(host_frames, v2_stream, st)
+        emit({"phase": "impaired_setup", "host_setup_s": bases["setup_s"],
+              "cpu_count": os.cpu_count(), "codec_draws": CODEC_DRAWS,
+              "wm_row": wm_row, "delta_db": bases["delta_db"]})
+        by_path = {"diagnostics": diagnostics_phase(torch, card)}
+        compat, speech, speech_keep = clean_rows(torch, card, bv, rv, bases,
+                                                 jax_rows)
+        by_path["impaired_compat"] = compat + impaired_compat_phase(
+            torch, card, bv, st, jax_rows)
+        by_path["impaired_v2_tone"], keep = impaired_tone_phase(
+            torch, card, rv, st, wm_row, jax_rows)
+        keep["speech clean"] = speech_keep
+        by_path["impaired_v2_speech"] = speech + impaired_speech_phase(
+            torch, card, rv, st, jax_rows)
+        by_path["codec_rows"] = codec_phase(torch, card, rv, st, jax_rows)
+    finally:                          # a failed phase leaves jobs queued
+        pool.shutdown(wait=True, cancel_futures=True)
+        st.close()
+    for path in ("impaired_compat", "impaired_v2_speech"):
+        check(by_path[path] > 0, f"payload_llr never launched on {path}")
+    pair_phase(torch, card, rv, cpu, keep)
+    emit({"phase": "impaired_total", "seconds": time.perf_counter() - t0})
+    return by_path
+
+
 def main() -> None:
     import torch
 
@@ -1245,16 +1905,17 @@ def main() -> None:
     by_path["compat"], bv, host_frames = compat_phases(torch, card)
     by_path["v2"], rv, cpu, stream = v2_phases(torch, card)
     by_path["tx_device_verify"] = tx_phase(torch, card, bv, host_frames)
-    del bv, host_frames
     by_path["ingest_44k1"], by_path["timescale_recover"] = recover_phases(
         torch, card, rv, cpu, stream)
-    del rv, cpu, stream
     torch.cuda.empty_cache()
     by_path["compat_single"], compat_stream = compat_single_phase(torch, card)
     by_path["v2_single"], v2_stream = v2_single_phase(torch, card)
     (by_path["stream_monitors"], by_path["batch_monitor"],
      by_path["verifier_pool"]) = monitor_pool_phase(torch, card, v2_stream)
     device_pair_phase(torch, card, compat_stream, v2_stream)
+    by_path.update(impaired_phases(torch, card, bv, host_frames, rv, cpu,
+                                   stream))
+    del bv, host_frames, rv, cpu, stream
     entry["launches"] = sum(by_path.values())
     entry["launches_by_path"] = by_path
     entry["max_abs_err"] = max_err

@@ -47,7 +47,8 @@ def test_port_imports_no_jax_tpu_or_cryptography():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     # the walk reaches every sub-package, the CLIs and the I/O included
-    assert {"cli", "io", "models", "ops", "core", "utils"} <= {
+    assert {"cli", "io", "models", "ops", "core", "utils", "diagnostics",
+            "data"} <= {
         f.parent.name for f in files}
     bad = [str(f) for f in files if banned.search(f.read_text())]
     assert bad == []
