@@ -114,7 +114,24 @@ line):
     ``frozen_check.audit()``, ``pn_check``, ``polar_roundtrip`` (16
     trials, L = 8), and ``stage_compare`` (v2 through MP3-sim, compat)
     against its CPU run: bools, integers and strings equal, floats within
-    1e-3 (compat demod, header and LLR scores 0.01).
+    1e-3 (compat demod, header and LLR scores 0.01);
+24. native TX and the GUI verify: the C ring mixer must build
+    (``native.available()``); a seeded ``NativeStreamEmbedder`` renders
+    8 s in 1024-sample blocks with the ring stocked before each block
+    (``process`` p50/p99 µs, host clock of the card machine's CPU) and
+    ``WatermarkDetector(KEY)`` on the card must verify it; ``tx_app
+    --native`` offline in a subprocess, its WAV verified by ``rx_app``
+    on the card; ``RxGUI()`` (stubbed tkinter) verifies the same WAV on
+    its worker thread on the card: ``AUTHENTIC``;
+25. data parallelism: an in-process world-size-1 ``nccl`` group on
+    ``cuda:0``; ``shard_verify`` on the phase-4 clips and
+    ``shard_verify_v2`` on 1024 cuts of the phase-7 stream: integers and
+    bools equal to the unsharded ``run_device``, floats within 1e-5 of
+    each clip's largest, the all-reduced ``n_crc_ok`` equal to the
+    unsharded count, verdicts row-identical, accept 1.0; the sharded and
+    unsharded RTF (stage + host finish, best of 3, in turns); then
+    ``python -m echoseal_torch.parallel.dryrun 1`` on ``nccl`` must print
+    ``DRYRUN_OK ... recovered=1``.
 
 The host impairments of phases 20-22 run in a pool of ``os.cpu_count()``
 worker processes (one BLAS thread each), every row's jobs queued at the
@@ -194,6 +211,8 @@ CODEC_T = 4 * FS              # codec rows: 4 s clips (codec_envelope.py)
 CODEC_DRAWS = 16 if (os.cpu_count() or 1) >= 16 else 8
 N_WRONG_DRAWS = 2             # codec draws per row verified under a wrong key
 CODEC_WIDTH = {48_000: 204_800, 44_100: 188_160}   # 188 160 ingests to 204 800
+NATIVE_S = 8                  # seconds of native-mixer TX (phase 24)
+ROOT = Path(__file__).resolve().parent
 CODECS = (("ulaw", "ulaw", None), ("alaw", "alaw", None),
           ("adpcm", "adpcm", None), ("ratecv_44k1_capture", "ratecv", 44_100),
           ("mpeg1_l2@64k", "l2", 64), ("mpeg1_l2@128k", "l2", 128),
@@ -335,7 +354,8 @@ def compat_phases(torch, card):
     """Phases 4-6.
 
     Returns (kernel launches of the compat main path, the verifier, the
-    (4096, 1215) host-made frames of the stream).
+    (4096, 1215) host-made frames of the stream, the B clips' start
+    samples in it).
     """
     from echoseal_torch.core.params import FRAME_LEN
     from echoseal_torch.models import pipeline as pl
@@ -463,7 +483,7 @@ def compat_phases(torch, card):
           "chips_max_abs_diff": float((g["chips"] - c["chips"]).abs().max()),
           "chips_sign_agree": float((g["chips"].sign() == c["chips"].sign())
                                     .float().mean())})
-    return launches["payload_llr"], bv, host_frames
+    return launches["payload_llr"], bv, host_frames, starts
 
 
 def _v2_stream(torch, rng, host):
@@ -1868,6 +1888,241 @@ def impaired_phases(torch, card, bv, host_frames, rv, cpu, v2_stream):
     return by_path
 
 
+# ======================================================================
+# phases 24-25: native TX, the GUI verify and data parallelism
+# ======================================================================
+def _gui_verify(path: str) -> tuple[str, float]:
+    """``RxGUI()`` (device None: the card) verifies ``path`` through its
+    worker thread, with tkinter stubbed as in the tests (the card's host has
+    no display); returns (the verdict label, host seconds)."""
+    from unittest import mock
+
+    sys.path.insert(0, str(ROOT / "tests"))     # as pytest imports it
+    from torch_port_util import fake_tkinter, run_gui_verify
+
+    with mock.patch.dict(sys.modules, fake_tkinter()):
+        from echoseal_torch.gui.rx_gui import RxGUI
+
+        root = mock.MagicMock(name="root")
+        gui = RxGUI(root=root)
+        gui.key_var.set(KEY.hex())
+        gui.file_var.set(path)
+        t0 = time.perf_counter()
+        label = run_gui_verify(gui, root)
+        return label, time.perf_counter() - t0
+
+
+def native_gui_phase(torch, card):
+    """Phase 24; returns {path: kernel launches} for "native_tx" and
+    "gui_rx"."""
+    import tempfile
+
+    from echoseal_torch import native
+    from echoseal_torch.cli import rx_app
+    from echoseal_torch.io import wavio
+    from echoseal_torch.models.detector import WatermarkDetector
+    from echoseal_torch.native.stream import NativeStreamEmbedder
+    from echoseal_torch.ops import build
+
+    t0 = time.perf_counter()
+    check(native.available(), "the C mixer did not build on the card's host")
+    build_s = time.perf_counter() - t0
+
+    # the ring stocked before every block, as the feeder keeps it live
+    host = np.zeros(NATIVE_S * FS, np.float32)
+    blocks, block_s = [], []
+    with NativeStreamEmbedder(KEY, rng=np.random.default_rng(SEED + 24)) as tx:
+        for i in range(0, host.size, 1024):
+            deadline = time.perf_counter() + 10.0
+            while (tx._mixer.available_chips < tx.LOW_WATER
+                   and time.perf_counter() < deadline):
+                time.sleep(0.0005)
+            check(tx._mixer.available_chips >= 1024,
+                  "the feeder thread left the ring short")
+            t1 = time.perf_counter()
+            blocks.append(tx.process(host[i:i + 1024]))
+            block_s.append(time.perf_counter() - t1)
+        frames = tx.frame_ctr
+    stream = np.concatenate(blocks)
+    us = 1e6 * np.asarray(block_s)
+    # the same blocks through a mixer alone: no feeder thread to share the
+    # interpreter lock with
+    alone = native.NativeMixer()
+    n_alone = alone.push_chips(stream)          # as much as the ring holds
+    alone_s = []
+    for i in range(0, n_alone - 1023, 1024):
+        t1 = time.perf_counter()
+        alone.process(host[i:i + 1024])
+        alone_s.append(time.perf_counter() - t1)
+    alone_us = 1e6 * np.asarray(alone_s)
+
+    build.LAUNCHES.clear()
+    ok, verify_s = _timed(lambda: WatermarkDetector(KEY).verify(stream, FS),
+                          torch)
+    check(ok is True, "the native TX stream did not verify on the card")
+    with tempfile.TemporaryDirectory() as d:
+        src, dst = os.path.join(d, "host.wav"), os.path.join(d, "wm.wav")
+        wavio.write(src, host[:4 * FS], FS)
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "echoseal_torch.cli.tx_app", "--key",
+             KEY.hex(), "--infile", src, "--outfile", dst, "--native"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t1
+        check(proc.returncode == 0 and "watermarked 4.0s" in proc.stderr
+              and "Python mixer" not in proc.stderr,
+              f"tx_app --native: rc {proc.returncode}, {proc.stderr[-2000:]}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = rx_app.main(["--key", KEY.hex(), "--audio", dst])
+        check(rc == 0 and out.getvalue() == "authentic\n",
+              f"rx_app on the tx_app --native WAV: rc {rc}, {out.getvalue()}")
+        native_launches = build.LAUNCHES.get("payload_llr", 0)
+
+        build.LAUNCHES.clear()
+        label, gui_s = _gui_verify(dst)
+        gui_launches = build.LAUNCHES.get("payload_llr", 0)
+    check(label == "AUTHENTIC", f"RxGUI on the card: {label!r}")
+    emit({"phase": "native_tx_gui", "card": card,
+          "host": "the card machine's host CPU",
+          "mixer_build_or_load_s": build_s, "stream_s": NATIVE_S,
+          "frames": frames, "blocks": len(block_s),
+          "process_p50_us": float(np.percentile(us, 50)),
+          "process_p99_us": float(np.percentile(us, 99)),
+          "process_max_us": float(us.max()),
+          "process_alone_p50_us": float(np.percentile(alone_us, 50)),
+          "process_alone_p99_us": float(np.percentile(alone_us, 99)),
+          "stream_verify_s": verify_s, "tx_app_native_s": cli_s,
+          "gui_verify_s": gui_s, "gui_label": label,
+          "launches": {"native_tx": native_launches, "gui_rx": gui_launches}})
+    return {"native_tx": native_launches, "gui_rx": gui_launches}
+
+
+def _row_rel_err(torch, g, w) -> float:
+    """Largest |g - w| of each clip over the clip's largest |w| (finite
+    entries; the non-finite ones must be equal)."""
+    fin = torch.isfinite(w)
+    check(torch.equal(fin, torch.isfinite(g))
+          and torch.equal(g[~fin], w[~fin]), "non-finite entries differ")
+    n = w.shape[0]
+    d = torch.where(fin, (g - w).abs(), 0.0).reshape(n, -1).amax(1)
+    s = torch.where(fin, w.abs(), 0.0).reshape(n, -1).amax(1)
+    return float((d / s.clamp(min=1e-30)).max())
+
+
+def sharded_phase(torch, card, bv, host_frames, starts, rv, v2_stream):
+    """Phase 25; returns {path: kernel launches} for "sharded_compat" and
+    "sharded_v2"."""
+    import torch.distributed as dist
+
+    from echoseal_torch.ops import build, demod
+    from echoseal_torch.parallel.dryrun import _free_port
+    from echoseal_torch.parallel.mesh import (
+        shard_verify,
+        shard_verify_v2,
+        streams_mesh,
+    )
+
+    scale = 10.0 ** (-35.0 / 20.0)
+    clips = torch.zeros(B, TPAD, device="cuda")
+    clips[:, :T] = demod.slice_windows(
+        torch.from_numpy(host_frames.reshape(-1)).cuda(),
+        torch.from_numpy(starts).cuda(), T) * scale
+    v2_starts = np.random.default_rng(SEED + 25).integers(
+        0, v2_stream.size - T, B)
+    clips2 = torch.zeros(B, TPAD_V2, device="cuda")
+    clips2[:, :T] = demod.slice_windows(
+        torch.from_numpy(v2_stream).cuda(), torch.from_numpy(v2_starts).cuda(),
+        T)
+    nv = torch.full((B,), T, dtype=torch.int32, device="cuda")
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = streams_mesh()
+        check(mesh.device == dev and (mesh.rank, mesh.world_size) == (0, 1),
+              f"mesh {mesh}")
+        line = {"phase": "sharded", "card": card, "backend": "nccl",
+                "world_size": 1, "B": B, "clip_s": CLIP_S,
+                "init_s": time.perf_counter() - t0}
+        by_path = {}
+        tiers = (("compat", bv, clips, shard_verify,
+                  lambda out: bv.finish_host(out)),
+                 ("v2", rv, clips2, shard_verify_v2,
+                  lambda out: rv._finish_ladder(out, None, True, 1 << 20)))
+        for tier, verifier, x, shard, finish in tiers:
+            run = shard(verifier, mesh)
+            torch.cuda.synchronize()
+            build.LAUNCHES.clear()
+            out = run(x, nv)
+            torch.cuda.synchronize()
+            by_path[f"sharded_{tier}"] = build.LAUNCHES.get("payload_llr", 0)
+            whole = verifier.run_device(x, nv)
+            check(set(out) == set(whole) | {"n_crc_ok"},
+                  f"{tier} sharded keys {sorted(out)}")
+            rel = 0.0
+            for k, w in whole.items():
+                g = out[k]
+                check(g.shape == w.shape and g.dtype == w.dtype,
+                      f"{tier} {k}: {g.dtype}{tuple(g.shape)} sharded")
+                if w.is_floating_point():
+                    rel = max(rel, _row_rel_err(torch, g, w))
+                else:
+                    check(torch.equal(g, w), f"{tier} {k}: sharded differs "
+                                             "from the unsharded run_device")
+            check(rel <= 1e-5, f"{tier}: floats differ by {rel} of a row")
+            n_crc = int(out["n_crc_ok"])
+            check(n_crc == int(whole["crc_ok"].sum()),
+                  f"{tier}: all-reduced n_crc_ok {n_crc}")
+            v_s, v_u = finish(out), finish(whole)
+            check(v_s.tolist() == v_u.tolist() and v_s.all(),
+                  f"{tier} sharded accept {v_s.mean()}, unsharded "
+                  f"{v_u.mean()}")
+            del out, whole
+
+            # wall time of stage + finish, unsharded and sharded in turns
+            times = {"unsharded": [], "sharded": []}
+            for mode in ("unsharded", "sharded") * 3:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                o = run(x, nv) if mode == "sharded" else \
+                    verifier.run_device(x, nv)
+                check(finish(o).all(), f"{tier} {mode} timed run rejected")
+                times[mode].append(time.perf_counter() - t1)
+                del o
+            best = {m: min(t) for m, t in times.items()}
+            line[tier] = {
+                "accept": 1.0, "n_crc_ok": n_crc,
+                "launches": by_path[f"sharded_{tier}"],
+                "max_row_rel_float_diff": rel,
+                "rtf_sharded": B * CLIP_S / best["sharded"],
+                "rtf_unsharded": B * CLIP_S / best["unsharded"],
+                "sharded_over_unsharded_s": best["sharded"]
+                / best["unsharded"], "runs_s": times}
+        del clips, clips2
+        torch.cuda.empty_cache()
+
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "echoseal_torch.parallel.dryrun", "1"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        marker = [ln for ln in proc.stdout.splitlines()
+                  if ln.startswith("DRYRUN_OK")]
+        check(proc.returncode == 0 and len(marker) == 1
+              and marker[0].endswith("recovered=1"),
+              f"dryrun 1 on nccl: rc {proc.returncode}, {proc.stdout[-1000:]}"
+              f" {proc.stderr[-3000:]}")
+        line["dryrun"] = {"marker": marker[0],
+                          "seconds": time.perf_counter() - t1}
+    finally:
+        dist.destroy_process_group()
+    emit(line)
+    return by_path
+
+
 def main() -> None:
     import torch
 
@@ -1902,7 +2157,7 @@ def main() -> None:
     del flush
 
     by_path = {}
-    by_path["compat"], bv, host_frames = compat_phases(torch, card)
+    by_path["compat"], bv, host_frames, starts = compat_phases(torch, card)
     by_path["v2"], rv, cpu, stream = v2_phases(torch, card)
     by_path["tx_device_verify"] = tx_phase(torch, card, bv, host_frames)
     by_path["ingest_44k1"], by_path["timescale_recover"] = recover_phases(
@@ -1915,7 +2170,13 @@ def main() -> None:
     device_pair_phase(torch, card, compat_stream, v2_stream)
     by_path.update(impaired_phases(torch, card, bv, host_frames, rv, cpu,
                                    stream))
-    del bv, host_frames, rv, cpu, stream
+    del cpu
+    by_path.update(native_gui_phase(torch, card))
+    by_path.update(sharded_phase(torch, card, bv, host_frames, starts, rv,
+                                 stream))
+    del bv, host_frames, rv, stream
+    for path in ("native_tx", "gui_rx", "sharded_compat", "sharded_v2"):
+        check(by_path[path] > 0, f"payload_llr never launched on {path}")
     entry["launches"] = sum(by_path.values())
     entry["launches_by_path"] = by_path
     entry["max_abs_err"] = max_err

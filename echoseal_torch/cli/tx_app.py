@@ -2,9 +2,10 @@
 
 Flags: --key --device (a sounddevice index) --seconds --save, plus an
 offline mode (--infile/--outfile) so the TX engine runs on machines
-without an audio stack.  The streaming mixers are host code (numpy), so
-this CLI needs no GPU.  The C ring mixer option (``--native``) of
-``echoseal_tpu.cli.tx_app`` is not ported.
+without an audio stack.  The streaming mixers are host code (numpy, or
+the C ring mixer with ``--native``), so this CLI needs no GPU.
+``--native`` applies to the compat mixer: with ``--profile v2``, or on a
+host without a C compiler, it says so on stderr and mixes in Python.
 """
 from __future__ import annotations
 
@@ -50,6 +51,9 @@ def parse_args(argv=None):
                         "with payload rate -- the measured frontier is "
                         "benchmarks/awgn_envelope.json rate_axis. TX and "
                         "RX must agree on K.")
+    p.add_argument("--native", action="store_true",
+                   help="mix in the C ring mixer (lock-free audio callback; "
+                        "frames rendered on a feeder thread)")
     return p.parse_args(argv)
 
 
@@ -75,6 +79,27 @@ def main(argv=None) -> int:
         from echoseal_torch.models.embedder import WatermarkEmbedder
 
         embedder = WatermarkEmbedder(key)
+    if args.native and args.profile == "v2":
+        print("--native applies to the compat mixer; using Python mixer",
+              file=sys.stderr)
+    elif args.native:
+        from echoseal_torch import native
+
+        if native.available():
+            from echoseal_torch.native.stream import NativeStreamEmbedder
+
+            embedder = NativeStreamEmbedder(key)
+        else:
+            print("--native: no C compiler available, using Python mixer",
+                  file=sys.stderr)
+    try:
+        return _run(args, embedder)
+    finally:
+        if hasattr(embedder, "close"):      # the native feeder thread
+            embedder.close()
+
+
+def _run(args, embedder) -> int:
     if args.infile:
         from echoseal_torch.io import wavio
         from echoseal_torch.io.audioloop import NullAudioLoop

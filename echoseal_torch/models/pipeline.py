@@ -937,10 +937,7 @@ class RobustBatchVerifier(BatchVerifier):
 
         t0 = time.perf_counter()
         if self._scan_bank is None:
-            self._scan_bank = tables_from_numpy(
-                {"scan_bank": robust.scaled_template_bank(
-                    self.fs, self.profile.oversample)},
-                self.device, SCAN_TABLE_DTYPES)["scan_bank"]
+            self._device_scan_bank()
             log["bank_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         nv_dev = torch.as_tensor(n_valid, device=self.device)
@@ -1024,6 +1021,16 @@ class RobustBatchVerifier(BatchVerifier):
     # coarser lattice clusters per-clip refinement estimates onto shared
     # denominators (one resample pass serves the cluster).
     RETRY_UP = 12_000
+
+    def _device_scan_bank(self) -> torch.Tensor:
+        """The scaled sync-template bank of the time-scale scan on this
+        verifier's device, designed on the host at first use (seconds)."""
+        if self._scan_bank is None:
+            self._scan_bank = tables_from_numpy(
+                {"scan_bank": robust.scaled_template_bank(
+                    self.fs, self.profile.oversample)},
+                self.device, SCAN_TABLE_DTYPES)["scan_bank"]
+        return self._scan_bank
 
     def _device_resampler(self, t_in: int) -> DeviceResampler:
         """The +-5% device resampler family for ``t_in``-wide clips."""

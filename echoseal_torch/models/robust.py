@@ -159,7 +159,11 @@ def _scale_scan_batch(x: torch.Tensor, n_valid: torch.Tensor,
 
     FFT correlation, not conv: the bank has ~124 rows, and one rfft of the
     batch plus per-row spectral products is far cheaper than a 124-kernel
-    convolution.  The sliding window energy is a cumsum difference, O(T).
+    convolution.  The sliding window energy is a cumsum difference, O(T),
+    summed in float64: a one-row cumsum on a CUDA card adds in an order
+    that varies from call to call, and in float32 the difference of two
+    clip-long sums turned that into up to 2e-5 of a score on an H100; in
+    float64 the variation stays far below a float32 rounding step.
     Bank rows go in chunks of ``row_chunk`` so the (B, chunk, T)
     correlation cube stays bounded (~380 MB at B=128, chunk=4, T=184k)
     instead of the full (B, 124, T).  Lags whose window would pass
@@ -169,10 +173,10 @@ def _scale_scan_batch(x: torch.Tensor, n_valid: torch.Tensor,
     R, L = bank.shape
     n_lag = T - L + 1
     X = torch.fft.rfft(x)                            # (B, T//2+1)
-    e = torch.cumsum(x * x, dim=-1)
+    e = torch.cumsum(x.double() ** 2, dim=-1)
     ew = e[:, L - 1:].clone()
     ew[:, 1:] -= e[:, :-L]
-    energy = torch.sqrt(torch.clamp(ew, min=0.0)) + 1e-12   # (B, n_lag)
+    energy = torch.sqrt(torch.clamp(ew.float(), min=0.0)) + 1e-12  # (B, n_lag)
     del e, ew
     lag = torch.arange(n_lag, device=x.device)
     bad = lag[None, :] > (n_valid.to(torch.int64)[:, None] - L)  # (B, n_lag)

@@ -211,8 +211,9 @@ def test_cli_argument_checks(tmp_path, key32, monkeypatch):
     with pytest.raises(SystemExit):        # not a rate the profile offers
         rx_app.main(["--key", HEX_A, "--profile", "v2", "--payload-k", "361",
                      "--audio", "x.wav"])
-    with pytest.raises(SystemExit):        # --native is not ported
-        tx_app.parse_args(["--key", HEX_A, "--native"])
+    # --native selects the C ring mixer (tests/test_torch_native_gui.py)
+    assert tx_app.parse_args(["--key", HEX_A, "--native"]).native is True
+    assert tx_app.parse_args(["--key", HEX_A]).native is False
     assert rx_app.parse_args(["--key", HEX_A]).device == "cuda"
 
     seen = {}

@@ -40,15 +40,16 @@ def jsec(key32):
 
 
 def test_port_imports_no_jax_tpu_or_cryptography():
-    """The port's sources and chip_smoke.py import none of the three."""
+    """The port's sources, chip_smoke.py and the test helper it imports
+    import none of the three."""
     banned = re.compile(
         r"^\s*(import|from)\s+(jax|echoseal_tpu|cryptography)\b", re.M)
     files = sorted((ROOT / "echoseal_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_port_util.py"]
     assert len(files) > 10
     # the walk reaches every sub-package, the CLIs and the I/O included
     assert {"cli", "io", "models", "ops", "core", "utils", "diagnostics",
-            "data"} <= {
+            "data", "native", "gui", "parallel"} <= {
         f.parent.name for f in files}
     bad = [str(f) for f in files if banned.search(f.read_text())]
     assert bad == []

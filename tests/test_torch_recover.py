@@ -452,3 +452,22 @@ def test_fallback_queue_starves_lattice_neighbour_in_both(key32, both,
         clips, nv, {0: 11639 / 12_000}, np.zeros(2, bool), None, refine=0,
         clips_dev=torch.from_numpy(clips), nv_dev=nv)
     assert rescued.tolist() == [True, False]
+
+
+def test_speech_host_recovery_matches_jax(key32, both, monkeypatch):
+    """Four seeded speech-host cuts played 3.1 % fast: the verdicts of
+    ``verify_batch_recover`` and the lattice keys tried in every round are
+    row-identical to the JAX package's (ROADMAP Queue C, speech-host
+    recovery: the port's 0.719 on the card against the TPU row's 0.157 is
+    not a port fault)."""
+    host = pchannels.speech_host(12.0, FS, rng=np.random.default_rng(77))
+    tx = probust.RobustEmbedder(key32, rng=np.random.default_rng(11))
+    stream = np.concatenate([tx.process(host[i:i + 1024])
+                             for i in range(0, host.size, 1024)])
+    starts = np.random.default_rng(12).integers(0, stream.size - T, 4)
+    clips, nv = _rows([pchannels.time_scale(stream[s:s + T], 1.031)
+                       for s in starts])
+    assert not both[1].verify_batch(clips, nv, use_scl=False).any()
+    v, rounds = _recover_both(both, clips, nv, monkeypatch)
+    assert rounds[0] == {0: 11640, 1: 11640, 2: 11640, 3: 11640}
+    assert v.any()          # some clips come back, in both packages alike

@@ -1,7 +1,10 @@
-"""Shared by the tests/test_torch_*.py modules: the torch thread limit and
-the seeded test streams."""
+"""Shared by the tests/test_torch_*.py modules: the torch thread limit, the
+seeded test streams and the stubbed tkinter for the GUIs, which
+chip_smoke.py also drives the card's GUI verify with."""
 import contextlib
 import sys
+import threading
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -72,3 +75,46 @@ def v2_stream(key, seconds, seed, nonce=None, level=0.1):
     host = (level * np.sin(2 * np.pi * 700 * np.arange(seconds * FS) / FS)
             ).astype(np.float32)
     return tx.embed(host, session_nonce=nonce)
+
+
+def fake_tkinter() -> dict:
+    """MagicMock ``tkinter``, ``tkinter.ttk`` and ``tkinter.filedialog``
+    modules for the GUIs' deferred imports, by ``sys.modules`` name (no
+    display needed); ``StringVar`` is a real get/set cell."""
+
+    class _StringVar:
+        def __init__(self, value: str = "") -> None:
+            self._v = value
+
+        def set(self, v: str) -> None:
+            self._v = v
+
+        def get(self) -> str:
+            return self._v
+
+    tk = mock.MagicMock(name="tkinter")
+    tk.StringVar = _StringVar
+    tk.ttk = mock.MagicMock(name="tkinter.ttk")
+    tk.filedialog = mock.MagicMock(name="tkinter.filedialog")
+    return {"tkinter": tk, "tkinter.ttk": tk.ttk,
+            "tkinter.filedialog": tk.filedialog}
+
+
+def run_gui_verify(gui, root, timeout: float = 300.0) -> str:
+    """Start an ``RxGUI`` verify on ``root`` (a MagicMock), wait for the
+    UI-thread continuation its worker thread posts through ``root.after``,
+    run it and return the verdict label."""
+    done = threading.Event()
+    posted = []
+
+    def after(_ms, cb=None):
+        if cb is not None:
+            posted.append(cb)
+            done.set()
+
+    root.after.side_effect = after
+    gui._verify()
+    if not done.wait(timeout=timeout):
+        raise AssertionError("the GUI's worker thread posted no verdict")
+    posted[-1]()
+    return gui.verdict.config.call_args.kwargs["text"]
