@@ -132,6 +132,28 @@ line):
     unsharded RTF (stage + host finish, best of 3, in turns); then
     ``python -m echoseal_torch.parallel.dryrun 1`` on ``nccl`` must print
     ``DRYRUN_OK ... recovered=1``.
+26. the fast-SSCL serving decoder (phases 1-25 run the exact one, the
+    ``ECHOSEAL_SCL_*`` switches unset; each leg here sets its switch in
+    ``scl_env``, which restores the environment): (a) 256 rows per spec
+    at sigma 0.35 at L = 8 and 32, and phase 10's 128 compat rows at
+    L = 256, exact and serving in turns (exact, serving, serving, exact,
+    exact, serving), decodes/s of each (best run), the aten ops one
+    decode dispatches and the first-CRC-pass FER, the serving FER at most
+    the exact FER plus ``benchmarks/scl_sweep.py``'s binomial slack, and
+    8 rows per (spec, L) with the CRC-passing sets of the CPU's serving
+    decode; (b) phase 9's 1024 clips through ``verify_batch`` with
+    ``ECHOSEAL_SCL_SERVING`` unset and ``"1"`` in turns: both accepts, the
+    clips rescued by ``"scl"`` and the rungs of each run; the serving
+    accept at least the hard accept and the exact accept less the slack,
+    the first 16 verdicts equal to the CPU's serving ladder, and every clip
+    rejected under a wrong key; (c) phase 14's batch through
+    ``verify_batch_recover`` with ``ECHOSEAL_SCL_SERVING=1`` (accept
+    >= 0.95), seconds and SCL share per round beside phase 14's second
+    call; (d) a noise clip through a fresh compat ``WatermarkDetector(KEY)``
+    and a fresh ``RobustVerifier(KEY)``, exact and with
+    ``ECHOSEAL_SCL_IMPL=serving`` in turns: rejected, seconds and SCL
+    seconds of each run beside phase 16's exact rejected clip; then an
+    authentic cut of each tier under serving must verify.
 
 The host impairments of phases 20-22 run in a pool of ``os.cpu_count()``
 worker processes (one BLAS thread each), every row's jobs queued at the
@@ -212,6 +234,12 @@ CODEC_DRAWS = 16 if (os.cpu_count() or 1) >= 16 else 8
 N_WRONG_DRAWS = 2             # codec draws per row verified under a wrong key
 CODEC_WIDTH = {48_000: 204_800, 44_100: 188_160}   # 188 160 ingests to 204 800
 NATIVE_S = 8                  # seconds of native-mixer TX (phase 24)
+SCL_SWITCHES = ("ECHOSEAL_SCL_IMPL", "ECHOSEAL_SCL_SERVING",
+                "ECHOSEAL_SCL_BLOCK_SEG")
+N_SERVING_ROWS = 256          # phase 26: rows per spec at the waterfall point
+SERVING_SIGMA = 0.35          # benchmarks/scl_sweep.py's waterfall sigma
+TURNS = ("exact", "serving", "serving", "exact", "exact", "serving")
+N_CPU_SERVING = 8             # rows per (spec, L) decoded on the CPU too
 ROOT = Path(__file__).resolve().parent
 CODECS = (("ulaw", "ulaw", None), ("alaw", "alaw", None),
           ("adpcm", "adpcm", None), ("ratecv_44k1_capture", "ratecv", 44_100),
@@ -503,7 +531,8 @@ def v2_phases(torch, card):
     """Phases 7-11.
 
     Returns (kernel launches of the v2 main path, the verifier, its CPU
-    twin on the same tables, the phase-7 stream).
+    twin on the same tables, the phase-7 stream, phase 9's clips on the
+    host).
     """
     from echoseal_torch.core.profiles import ROBUST
     from echoseal_torch.models import pipeline as pl
@@ -643,6 +672,7 @@ def v2_phases(torch, card):
                     for r, L, n, s in rungs],
           "cpu_clips": N_CPU_LADDER, "cpu_verdicts_equal": True,
           "cpu_s": cpu_s})
+    ladder_clips = sil.cpu()                   # phase 26 runs them again
     del sil
 
     # ---- 10. SCL-256 -----------------------------------------------------------
@@ -707,7 +737,7 @@ def v2_phases(torch, card):
           "chips_max_abs_diff": float((g["chips"] - c["chips"]).abs().max()),
           "chips_max_row_rel_diff": float(rel.max())})
     del rv._scl_fallback                       # the counting wrapper
-    return launches["payload_llr"], rv, cpu, stream
+    return launches["payload_llr"], rv, cpu, stream, ladder_clips
 
 
 def tx_phase(torch, card, bv, host_frames):
@@ -793,7 +823,8 @@ def _spy_retries(verifier):
 
 def recover_phases(torch, card, rv, cpu, stream):
     """Phases 13-15; returns the kernel launches of the ingest path and of
-    the recovery path."""
+    the recovery path, and for phase 26 the phase-14 batch on the host
+    (clips, lengths) with phase 14's line."""
     from scipy.signal import resample_poly
 
     from echoseal_torch.ops import build
@@ -987,7 +1018,8 @@ def recover_phases(torch, card, rv, cpu, stream):
           "verdicts": v_g.tolist(), "verdicts_equal": True,
           "equal_to_full_batch": v_g.tolist() == rec[:4].tolist(),
           "tried_keys": keys_g, "tried_keys_equal": True, "cpu_s": cpu_s})
-    return launches_ingest["payload_llr"], launches_rec["payload_llr"]
+    return (launches_ingest["payload_llr"], launches_rec["payload_llr"],
+            (scaled_np, nvs, line))
 
 
 def _pcts(seconds) -> dict[str, float]:
@@ -1013,7 +1045,8 @@ def _timed(fn, torch):
 
 
 def compat_single_phase(torch, card):
-    """Phase 16; returns (kernel launches of the 30 verifies, the stream)."""
+    """Phase 16; returns (kernel launches of the 30 verifies, the stream,
+    the rejected clips' seconds)."""
     from echoseal_torch.models.detector import WatermarkDetector
     from echoseal_torch.models.embedder import BatchEmbedder, WatermarkEmbedder
     from echoseal_torch.ops import build
@@ -1071,7 +1104,8 @@ def compat_single_phase(torch, card):
           "host_split_30_clips": split, "rejects": rejects,
           "raw_frame": {"right_key": raw_ok, "seconds": raw_s,
                         "wrong_key": raw_bad, "wrong_key_seconds": raw_bad_s}})
-    return launches["payload_llr"], stream
+    return (launches["payload_llr"], stream,
+            {k: v["seconds"] for k, v in rejects.items()})
 
 
 def v2_single_phase(torch, card):
@@ -2123,10 +2157,267 @@ def sharded_phase(torch, card, bv, host_frames, starts, rv, v2_stream):
     return by_path
 
 
+@contextlib.contextmanager
+def scl_env(**env):
+    """Set ECHOSEAL_SCL_* switches (None unsets one) for one leg; the
+    previous environment comes back on the way out, also on a failure."""
+    def put(values):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(f"ECHOSEAL_SCL_{k}", None)
+            else:
+                os.environ[f"ECHOSEAL_SCL_{k}"] = v
+
+    old = {k: os.environ.get(f"ECHOSEAL_SCL_{k}") for k in env}
+    try:
+        put(env)
+        yield
+    finally:
+        put(old)
+
+
+def _slack(p: float, n: int) -> float:
+    """``benchmarks/scl_sweep.py``'s binomial slack on a rate ``p`` of n."""
+    return 2.0 * float(np.sqrt(max(p * (1.0 - p), 0.25 / n) / n))
+
+
+def _first_pass_fer(res, sent: np.ndarray) -> float:
+    """Share of rows whose first CRC-passing path is not the sent payload."""
+    ok = res["crc_ok"].cpu().numpy()
+    info = res["info_bits"].cpu().numpy()
+    first = info[np.arange(ok.shape[0]), ok.argmax(-1)]
+    return 1.0 - float((ok.any(-1) & (first == sent).all(-1)).mean())
+
+
+def _coded_rows(spec, n: int, sigma: float, rng):
+    """(sent info bits, float32 LLRs) of n random payloads through AWGN."""
+    from echoseal_torch.ops import polar
+
+    pays = [rng.bytes(spec.info_len // 8) for _ in range(n)]
+    bits = np.stack([polar.encode_np(p, spec) for p in pays])
+    y = (2.0 * bits - 1.0) + sigma * rng.standard_normal(bits.shape)
+    sent = np.unpackbits(np.frombuffer(b"".join(pays), np.uint8)).reshape(n, -1)
+    return sent, (2.0 * y / (sigma * sigma)).astype(np.float32)
+
+
+def _aten_ops(fn) -> int:
+    """Aten ops that ``fn()`` dispatches (what an eager decode launches)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        fn()
+    return c.n
+
+
+def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
+                      compat_stream, v2_stream, compat_rejects):
+    """Phase 26: the fast-SSCL serving decoder and its switches beside the
+    exact decoder; returns {path: kernel launches} of the serving ladder,
+    recovery and single-clip legs."""
+    from echoseal_torch.core.profiles import ROBUST, profile_spec
+    from echoseal_torch.models.detector import WatermarkDetector
+    from echoseal_torch.models.pipeline import RobustBatchVerifier
+    from echoseal_torch.models.robust import RobustVerifier
+    from echoseal_torch.ops import build, polar, scl
+    from echoseal_torch.utils.logging import Timer
+
+    t_phase = time.perf_counter()
+    line = {"phase": "scl_serving", "card": card}
+
+    # ---- (a) the decoder alone -------------------------------------------
+    def passing(r, i):
+        ok = r["crc_ok"][i].cpu().numpy()
+        return {polar.pack_info_bits(b)
+                for b in r["info_bits"][i].cpu().numpy()[ok]}
+
+    rng = np.random.default_rng(SEED + 26)
+    specs = {"compat": polar.polar_spec(), "v2": profile_spec(ROBUST)}
+    sets = []
+    for name, spec in specs.items():
+        sent, llr = _coded_rows(spec, N_SERVING_ROWS, SERVING_SIGMA, rng)
+        sets += [(name, spec, L, SERVING_SIGMA, sent, llr) for L in (8, 32)]
+    # phase 10's rows: the SCL-256 set
+    sent, llr = _coded_rows(specs["compat"], N_SCL256, 0.3,
+                            np.random.default_rng(SEED + 3))
+    sets.append(("compat", specs["compat"], 256, 0.3, sent, llr))
+    decoders = []
+    for name, spec, L, sigma, sent, llr_np in sets:
+        llr = torch.from_numpy(llr_np).cuda()
+        best, res = {}, {}
+        for mode in TURNS:
+            with scl_env(IMPL="serving" if mode == "serving" else None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = scl.scl_decode(llr, spec, L)
+                r["crc_ok"].cpu()
+                dt = time.perf_counter() - t0
+            best[mode] = min(best.get(mode, dt), dt)
+            res[mode] = r
+        n = llr.shape[0]
+        fer = {m: _first_pass_fer(res[m], sent) for m in res}
+        slack = _slack(fer["exact"], n)
+        check(fer["serving"] <= fer["exact"] + slack,
+              f"serving FER {fer['serving']} > exact {fer['exact']} + "
+              f"{slack} ({name}, L = {L})")
+        ops = {}
+        for mode in ("exact", "serving"):
+            with scl_env(IMPL="serving" if mode == "serving" else None):
+                ops[mode] = _aten_ops(lambda: scl.scl_decode(
+                    llr[:N_CPU_SERVING], spec, L))
+        with scl_env(IMPL="serving"):
+            want = scl.scl_decode(llr[:N_CPU_SERVING].cpu(), spec, L)
+        for i in range(N_CPU_SERVING):
+            check(passing(res["serving"], i) == passing(want, i),
+                  f"serving {name} L = {L} row {i}: card and CPU "
+                  "CRC-passing sets differ")
+        decoders.append({
+            "spec": name, "L": L, "rows": n, "sigma": sigma,
+            "exact_decodes_per_s": n / best["exact"],
+            "serving_decodes_per_s": n / best["serving"],
+            "serving_over_exact": best["exact"] / best["serving"],
+            "exact_ops": ops["exact"], "serving_ops": ops["serving"],
+            "exact_us_per_op": 1e6 * best["exact"] / ops["exact"],
+            "serving_us_per_op": 1e6 * best["serving"] / ops["serving"],
+            "exact_fer": fer["exact"], "serving_fer": fer["serving"],
+            "slack": slack, "cpu_rows_equal": N_CPU_SERVING})
+        del llr, res, want
+    line["decoder"] = decoders
+
+    # ---- (b) the v2 ladder ------------------------------------------------
+    clips = ladder_clips.cuda()
+    nv = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    hard = rv.verify_batch(clips, nv, use_scl=False)
+    runs = {"exact": [], "serving": []}
+    launches_ladder = 0
+    for mode in ("exact", "serving", "serving", "exact"):
+        with scl_env(SERVING="1" if mode == "serving" else None, IMPL=None):
+            build.LAUNCHES.clear()
+            details = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = rv.verify_batch(clips, nv, details=details)
+            dt = time.perf_counter() - t0
+            if mode == "serving":
+                launches_ladder += build.LAUNCHES["payload_llr"]
+        runs[mode].append({
+            "accept": float(v.mean()), "seconds": dt,
+            "rescued_by_scl": sum(d.stage == "scl" for d in details.values()),
+            "rungs": [{"rows": r, "L": L, "n_rows": k, "s": t}
+                      for r, L, k, t in rv.scl_rungs], "verdicts": v})
+    acc = {m: runs[m][0]["accept"] for m in runs}
+    for m in runs:
+        check(runs[m][0]["verdicts"].tolist() == runs[m][1]["verdicts"].tolist(),
+              f"{m} ladder verdicts differ between its two runs")
+    slack = _slack(acc["exact"], B)
+    check(acc["serving"] >= float(hard.mean()),
+          f"serving ladder accept {acc['serving']} below hard {hard.mean()}")
+    check(acc["serving"] >= acc["exact"] - slack,
+          f"serving ladder accept {acc['serving']} below exact "
+          f"{acc['exact']} - {slack}")
+    with scl_env(SERVING="1", IMPL=None):
+        v_cpu = cpu.verify_batch(ladder_clips[:N_CPU_LADDER],
+                                 nv[:N_CPU_LADDER].cpu())
+        bad = RobustBatchVerifier(BAD_KEY)
+        bad_acc = bad.verify_batch(clips, nv)
+    want = runs["serving"][0]["verdicts"][:N_CPU_LADDER].tolist()
+    check(v_cpu.tolist() == want,
+          f"serving ladder verdicts card {want} cpu {v_cpu.tolist()}")
+    check(not bad_acc.any(),
+          f"{int(bad_acc.sum())} wrong-key clips accepted by the serving ladder")
+    del bad, clips
+    for m in runs:
+        for r in runs[m]:
+            del r["verdicts"]
+    line["ladder"] = {"B": B, "snr_db": 4.0, "hard_accept": float(hard.mean()),
+                      "exact_accept": acc["exact"],
+                      "serving_accept": acc["serving"], "slack": slack,
+                      "runs": runs, "cpu_clips": N_CPU_LADDER,
+                      "cpu_verdicts_equal": True, "wrong_key_accepted": 0,
+                      "launches_serving_runs": launches_ladder}
+
+    # ---- (c) recovery -----------------------------------------------------
+    scaled_np, nvs, exact_line = recover_batch
+    scaled = torch.from_numpy(scaled_np).cuda()
+    with scl_env(SERVING="1", IMPL=None):
+        build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = rv.verify_batch_recover(scaled, nvs)
+        rec_s = time.perf_counter() - t0
+        launches_rec = build.LAUNCHES["payload_llr"]
+    log = rv.recover_log
+    del scaled
+    rec_accept = float(rec.mean())
+    check(rec_accept >= RECOVER_GATE,
+          f"serving recovery accept {rec_accept} < {RECOVER_GATE}")
+    exact2 = exact_line["second_call"]
+    line["recover"] = {
+        "B": B, "factor": SCALE, "gate": RECOVER_GATE,
+        "serving_accept": rec_accept, "exact_accept": exact_line["accept"],
+        "serving_s": rec_s, "exact_second_call_s": exact2["seconds"],
+        "serving_rounds": [{"s": r["s"], "scl_s": r["scl_s"],
+                            "scl_share": r["scl_s"] / max(r["s"], 1e-9)}
+                           for r in log["rounds"]],
+        "serving_scl_s": sum(r["scl_s"] for r in log["rounds"]),
+        "exact_scl_s": exact2["scl_s"],
+        "exact_rounds_s": exact2["rounds_s"]}
+
+    # ---- (d) single clips -------------------------------------------------
+    rng = np.random.default_rng(SEED + 27)
+    noise = (0.1 * rng.standard_normal(T35)).astype(np.float32)
+    single = {}
+    launches_single = 0
+    for tier, make, stream, span in (
+            ("compat", lambda: WatermarkDetector(KEY), compat_stream,
+             "rx.scl"),
+            ("v2", lambda: RobustVerifier(KEY), v2_stream, "rx.v2.scl")):
+        s0 = int(rng.integers(0, stream.size - T35))
+        out = {"noise": {"exact": [], "serving": []}}
+        # the rejected clip in turns, each on a fresh verifier
+        for mode in TURNS[:4]:
+            with scl_env(IMPL="serving" if mode == "serving" else None,
+                         SERVING=None):
+                det = make()
+                Timer.registry.clear()
+                build.LAUNCHES.clear()
+                r, dt = _timed(lambda: det.verify_detailed(noise, FS), torch)
+                if mode == "serving":
+                    launches_single += build.LAUNCHES["payload_llr"]
+            scl_s = _timer_totals(Timer).get(span, {}).get("total_s", 0.0)
+            check(not r.authentic, f"{mode} {tier} noise clip accepted: {r}")
+            check(scl_s > 0, f"{mode} {tier} noise clip ran no SCL pass")
+            out["noise"][mode].append({"seconds": dt, "scl_s": scl_s})
+        with scl_env(IMPL="serving", SERVING=None):
+            det = make()
+            build.LAUNCHES.clear()
+            r, dt = _timed(lambda: det.verify_detailed(
+                stream[s0:s0 + T35], FS), torch)
+            launches_single += build.LAUNCHES["payload_llr"]
+        check(r.authentic, f"serving {tier} cut at {s0} rejected: {r}")
+        out["cut"] = {"authentic": True, "stage": r.stage, "seconds": dt}
+        single[tier] = out
+    single["compat"]["noise"]["exact_phase16_s"] = compat_rejects["noise"]
+    line["single"] = single
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    return {"serving_ladder": launches_ladder,
+            "serving_recover": launches_rec,
+            "serving_single": launches_single}
+
+
 def main() -> None:
     import torch
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    for name in SCL_SWITCHES:          # phases 1-25 run the exact decoder
+        os.environ.pop(name, None)
     try:
         from echoseal_torch.ops import build, llr
     except ImportError as e:
@@ -2158,24 +2449,29 @@ def main() -> None:
 
     by_path = {}
     by_path["compat"], bv, host_frames, starts = compat_phases(torch, card)
-    by_path["v2"], rv, cpu, stream = v2_phases(torch, card)
+    by_path["v2"], rv, cpu, stream, ladder_clips = v2_phases(torch, card)
     by_path["tx_device_verify"] = tx_phase(torch, card, bv, host_frames)
-    by_path["ingest_44k1"], by_path["timescale_recover"] = recover_phases(
-        torch, card, rv, cpu, stream)
+    (by_path["ingest_44k1"], by_path["timescale_recover"],
+     recover_batch) = recover_phases(torch, card, rv, cpu, stream)
     torch.cuda.empty_cache()
-    by_path["compat_single"], compat_stream = compat_single_phase(torch, card)
+    (by_path["compat_single"], compat_stream,
+     compat_rejects) = compat_single_phase(torch, card)
     by_path["v2_single"], v2_stream = v2_single_phase(torch, card)
     (by_path["stream_monitors"], by_path["batch_monitor"],
      by_path["verifier_pool"]) = monitor_pool_phase(torch, card, v2_stream)
     device_pair_phase(torch, card, compat_stream, v2_stream)
     by_path.update(impaired_phases(torch, card, bv, host_frames, rv, cpu,
                                    stream))
-    del cpu
     by_path.update(native_gui_phase(torch, card))
     by_path.update(sharded_phase(torch, card, bv, host_frames, starts, rv,
                                  stream))
-    del bv, host_frames, rv, stream
-    for path in ("native_tx", "gui_rx", "sharded_compat", "sharded_v2"):
+    del bv, host_frames, stream
+    by_path.update(scl_serving_phase(torch, card, rv, cpu, ladder_clips,
+                                     recover_batch, compat_stream, v2_stream,
+                                     compat_rejects))
+    del rv, cpu, ladder_clips, recover_batch
+    for path in ("native_tx", "gui_rx", "sharded_compat", "sharded_v2",
+                 "serving_ladder", "serving_recover", "serving_single"):
         check(by_path[path] > 0, f"payload_llr never launched on {path}")
     entry["launches"] = sum(by_path.values())
     entry["launches_by_path"] = by_path

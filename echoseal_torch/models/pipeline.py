@@ -60,7 +60,7 @@ from echoseal_torch.ops import demod
 from echoseal_torch.ops.llr import payload_llr
 from echoseal_torch.ops.polar import PolarSpec, hard_decode_batch, polar_spec
 from echoseal_torch.ops.resample import DeviceResampler
-from echoseal_torch.ops.scl import scl_decode
+from echoseal_torch.ops.scl import scl_decode_serving
 
 DEFAULT_MAX_CTR = 16_384     # ~7 min of stream @ 39.5 frames/s
 DEFAULT_PEAKS = 2            # sync peaks examined per band per clip
@@ -1230,7 +1230,9 @@ class RobustBatchVerifier(BatchVerifier):
         list size), each rung only on still-failing clips.  The rows stay
         on the device; per rung the host downloads the CRC flags and the
         packed bytes of the CRC-passing paths, and opens them in (row,
-        list) order.
+        list) order.  Each rung decodes through ``scl_decode_serving``:
+        exact unless ``ECHOSEAL_SCL_SERVING`` or ``ECHOSEAL_SCL_IMPL``
+        selects the fast-SSCL walk (``ops/scl.py``).
         """
         self.scl_rungs = []
         rescued = np.zeros(mask.shape[0], dtype=bool)
@@ -1253,8 +1255,8 @@ class RobustBatchVerifier(BatchVerifier):
                 w = hi - lo
                 sub = llr[torch.as_tensor(pending, device=dev), lo:hi]
                 sub_ctr = ctrs[pending, lo:hi].reshape(-1)
-                res = scl_decode(sub.reshape(-1, sub.shape[-1]), self._spec,
-                                 lsize)
+                res = scl_decode_serving(sub.reshape(-1, sub.shape[-1]),
+                                         self._spec, lsize)
                 rr, ll = np.nonzero(res["crc_ok"].cpu().numpy())
                 blobs = _pack_bits(res["info_bits"][
                     torch.as_tensor(rr, device=dev),

@@ -1,9 +1,10 @@
-"""Exact CRC-aided successive-cancellation list (SCL) decoding in torch.
+"""CRC-aided successive-cancellation list (SCL) decoding in torch.
 
-The port of ``echoseal_tpu/ops/scl.py``'s exact decoder, in the structure
-of its ``_scl_decode_unrolled``: the frozen pattern is static, so the
-decode tree is walked on the host once per call and every step is a
-batched tensor op over ``(B, L, seg)``:
+The port of ``echoseal_tpu/ops/scl.py``'s exact decoder and of its
+fast-SSCL serving mode, both in the structure of its
+``_scl_decode_unrolled``: the frozen pattern is static, so the decode tree
+is walked on the host once per call and every step is a batched tensor op
+over ``(B, L, seg)``:
 
 * frozen leaves skip the fork (one penalty add);
 * aligned all-frozen (rate-0) subtrees collapse to
@@ -20,17 +21,30 @@ each live buffer keeps a per-path source-index column, and a fork
 permutes those columns (one gather of a (B, L, slots) int64 map).  A
 buffer is gathered only when it is read after a fork, so the bytes moved
 stay O(N log N) per path.  The decisions ride the forks as a (B, L, K)
-bool array: forks happen exactly at the K non-frozen leaves, in ascending
-leaf order, so column k is the k-th data bit.
+bool array whose column k is the k-th data bit (``spec.data_pos``
+ascending): a leaf fork writes its leaf's column.
 
 Numerics follow the JAX package: logaddexp f-combine, "positive LLR =>
 bit 1", penalties ``log1p(exp(-|llr|)) (+ |llr| if the decision
 disagrees)``, final lists sorted by a stable ascending sort of the
 metric.  Every op is eager, so a decode issues some 10**4 small kernels:
 it is correct and launch-bound.
+
+Serving mode (fast-SSCL, Hashemi et al., "Fast and Flexible
+Successive-Cancellation List Decoders", IEEE TSP 2017) is another
+algorithm, not a faster route to the same lists: min-sum f-combines and
+the hard path metric everywhere, and inside subtrees of at most
+``N >> hp`` leaves (``hp`` from ``block_seg`` as in the JAX package)
+rate-1 and single-parity-check (SPC) nodes fork only on their
+``min(L-1, .)`` least reliable bits.  Such a node's forks write no
+decision column; its span's bits are written after it, as the GF(2)
+polar transform of its codeword.  ``ECHOSEAL_SCL_IMPL``,
+``ECHOSEAL_SCL_SERVING`` and ``ECHOSEAL_SCL_BLOCK_SEG`` choose between the
+two at call time (``scl_decode``, ``scl_decode_serving``).
 """
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -40,6 +54,8 @@ from echoseal_torch.core.device import resolve_device
 from echoseal_torch.ops.polar import PolarSpec, crc8_check_batch
 
 BIG_METRIC = 1e30
+IMPLS = ("serving", "unrolled", "blocked", "lazy", "dense")
+BLOCK_SEG = 16
 
 
 @lru_cache(maxsize=None)
@@ -55,6 +71,16 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 def _f_combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact LLR f-combine: llr of u_left given (a, b)."""
     return torch.logaddexp(a, b) - _softplus(a + b)
+
+
+def _f_combine_ms(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Min-sum f-combine: -sign(a) sign(b) min(|a|, |b|).
+
+    The leading minus: LLRs here are log p1/p0, under which two confident
+    ones combine to a confident zero, so the textbook (log p0/p1) min-sum
+    flips sign.
+    """
+    return -torch.sign(a) * torch.sign(b) * torch.minimum(a.abs(), b.abs())
 
 
 def _g_combine(a: torch.Tensor, b: torch.Tensor,
@@ -74,6 +100,39 @@ def _penalties(leaf_llr: torch.Tensor):
             soft + torch.where(pos, 0.0, mag))
 
 
+def _penalties_hard(leaf_llr: torch.Tensor):
+    """Hard-metric penalties: an agreeing decision is free, a disagreeing
+    one costs |llr|; a zero LLR costs nothing either way."""
+    mag = torch.abs(leaf_llr)
+    pos = leaf_llr >= 0.0
+    return torch.where(pos, mag, 0.0), torch.where(pos, 0.0, mag)
+
+
+def _gf2_transform(beta: torch.Tensor) -> torch.Tensor:
+    """The polar kernel over GF(2) on the last axis (a power-of-two width).
+
+    Maps a subtree's codeword (beta) to its leaf bits (u) and back: the
+    recursion ``[T(p ^ q), T(q)]`` on halves, done as log2(width) in-place
+    butterfly stages on a copy.
+    """
+    x = beta.clone(memory_format=torch.contiguous_format)
+    seg = x.shape[-1]
+    h = seg >> 1
+    while h:
+        v = x.view(*x.shape[:-1], seg // (2 * h), 2, h)
+        v[..., 0, :] ^= v[..., 1, :]
+        h >>= 1
+    return x
+
+
+def _node_level(n: int, block_seg: int) -> int:
+    """The shallowest level whose subtrees may be rate-1 or SPC nodes: the
+    JAX package's block-root level ``hp`` for ``block_seg``."""
+    N = 1 << n
+    ld0 = next((l for l in range(1, n + 1) if (N >> l) <= block_seg), n)
+    return max(ld0, 2) - 1
+
+
 class _Buf:
     """A per-path buffer: its tensor, source-index slot and fork epoch.
 
@@ -90,11 +149,17 @@ class _Buf:
 class _ListDecoder:
     """One batched list decode: the walk, the forks and the path state."""
 
-    def __init__(self, llr: torch.Tensor, spec: PolarSpec, L: int) -> None:
+    def __init__(self, llr: torch.Tensor, spec: PolarSpec, L: int,
+                 serving: bool = False, block_seg: int = BLOCK_SEG) -> None:
         B, N = llr.shape
         dev = llr.device
         self.N, self.n, self.L, self.B = N, N.bit_length() - 1, L, B
         self.frozen = np.asarray(spec.frozen, dtype=bool)
+        self.col_of = np.cumsum(~self.frozen) - 1      # leaf -> data column
+        self.serving = serving
+        self.node_level = _node_level(self.n, block_seg)
+        self.f_comb = _f_combine_ms if serving else _f_combine
+        self.pens = _penalties_hard if serving else _penalties
         self.rows = torch.arange(B, device=dev)[:, None]
         metric = torch.full((B, L), BIG_METRIC, device=dev)
         metric[:, 0] = 0.0
@@ -123,8 +188,11 @@ class _ListDecoder:
         self.fresh.add(b.slot)
         return b.t
 
-    def fork(self, pen0: torch.Tensor, pen1: torch.Tensor) -> torch.Tensor:
-        """2L-candidate fork; returns the survivors' decisions (B, L) bool."""
+    def permute(self, pen0: torch.Tensor, pen1: torch.Tensor):
+        """2L-candidate fork without a decision column.
+
+        Returns the survivors' bits (B, L) bool and parents (B, L) int64.
+        """
         B, L = self.B, self.L
         cand = torch.stack((self.metric + pen0, self.metric + pen1),
                            dim=-1).reshape(B, 2 * L)
@@ -138,11 +206,97 @@ class _ListDecoder:
             src[:, :, sorted(self.fresh)] = parent[..., None]
             self.fresh.clear()
         self.src = src
-        dec = self.dec[self.rows, parent]
-        dec[:, :, self.forks] = bits
-        self.dec = dec
+        self.dec = self.dec[self.rows, parent]
         self.forks += 1
+        return bits, parent
+
+    def fork(self, pen0: torch.Tensor, pen1: torch.Tensor,
+             leaf: int) -> torch.Tensor:
+        """A fork that decides info leaf ``leaf``; returns the bits."""
+        bits, _ = self.permute(pen0, pen1)
+        self.dec[:, :, int(self.col_of[leaf])] = bits
         return bits
+
+    def write_span(self, pos: int, beta: torch.Tensor) -> None:
+        """Write a node's leaf bits, ``_gf2_transform(beta)``, into the
+        columns of the span's info leaves."""
+        seg = beta.shape[-1]
+        info = np.flatnonzero(~self.frozen[pos:pos + seg])
+        k0 = int(self.col_of[pos + info[0]])
+        u = _gf2_transform(beta)
+        self.dec[:, :, k0:k0 + info.size] = (
+            u if info.size == seg else u[..., int(info[0]):])
+
+    # ------------------------------------------------------ serving nodes
+    def rate1(self, a: torch.Tensor, pos: int) -> torch.Tensor:
+        """Rate-1 node: ``min(L-1, seg)`` forks on the least reliable bits,
+        each with penalties (0, |a_t|); returns the codeword (beta)."""
+        B, L, seg = self.B, self.L, a.shape[-1]
+        if L > 1:
+            a = a.expand(B, L, seg)
+            mag = a.abs()
+            q = min(L - 1, seg)
+            order = torch.argsort(mag, dim=-1, stable=True)[..., :q]
+            beta = self._flip_forks(a, order, mag.gather(-1, order))
+        else:
+            beta = a > 0.0
+        self.write_span(pos, beta)
+        return beta
+
+    def spc(self, a: torch.Tensor, pos: int) -> torch.Tensor:
+        """SPC node: the parity fixed on the least reliable bit, then
+        ``min(L-1, seg-1)`` forks with penalty |a_t| + (1 - 2 f0)|a_0|,
+        each flip re-toggling the least reliable bit; returns beta."""
+        B, L, seg = self.B, self.L, a.shape[-1]
+        q = min(L - 1, seg - 1) if L > 1 else 0
+        if q:
+            a = a.expand(B, L, seg)
+        hard = a > 0.0
+        par = hard.sum(dim=-1) & 1                     # (B, L)
+        mag = a.abs()
+        order = torch.argsort(mag, dim=-1, stable=True)[..., :q + 1]
+        smag = mag.gather(-1, order)                   # ascending
+        self.metric = self.metric + par.to(torch.float32) * smag[..., 0]
+        if q:
+            beta = self._flip_forks(a, order, smag, par.bool())
+        else:
+            beta = hard.scatter(-1, order, hard.gather(-1, order)
+                                ^ par.bool()[..., None])
+        self.write_span(pos, beta)
+        return beta
+
+    def _flip_forks(self, a, order, smag, f0=None):
+        """The node's forks, one per order position (an SPC node's parity
+        flag ``f0`` stands for position 0, so its forks start at 1).
+
+        The node's alpha, order and sorted magnitudes stay indexed by the
+        paths at the node's start: each path carries the index of its
+        ancestor there (``anc``), gathered through every fork, together
+        with the bits of its flips so far and, for an SPC node, its
+        parity flag ``f0`` (the state of the least reliable bit).
+        """
+        B, L = self.B, self.L
+        t0, t1 = (0 if f0 is None else 1), order.shape[-1]
+        anc = torch.arange(L, device=a.device).expand(B, L)
+        flips = torch.zeros((B, L, t1 - t0), dtype=torch.bool,
+                            device=a.device)
+        zero = torch.zeros((B, L), device=a.device)
+        for t in range(t0, t1):
+            pen = smag[..., t].gather(1, anc)
+            if f0 is not None:
+                pen = pen + (1.0 - 2.0 * f0.to(torch.float32)) * \
+                    smag[..., 0].gather(1, anc)
+            bits, parent = self.permute(zero, pen)
+            anc = anc.gather(1, parent)
+            flips = flips[self.rows, parent]
+            flips[..., t - t0] = bits
+            if f0 is not None:
+                f0 = f0.gather(1, parent) ^ bits
+        a, order = a[self.rows, anc], order[self.rows, anc]
+        if f0 is not None:                             # the least reliable bit
+            flips = torch.cat((f0[..., None], flips), dim=-1)
+        flip = torch.zeros_like(a, dtype=torch.bool).scatter(-1, order, flips)
+        return (a > 0.0) ^ flip
 
     # ------------------------------------------------------------ walk
     def walk(self, l: int, pos: int, a: _Buf) -> _Buf | None:
@@ -155,21 +309,28 @@ class _ListDecoder:
         fr = self.frozen[pos:pos + seg]
         bslot = self.n + 1 + 2 * l + ((pos >> (self.n - l)) & 1)
         if fr.all():                                   # rate-0 shortcut
-            pen = _softplus(self.read(a)).sum(dim=-1)
+            alpha = self.read(a)
+            pen = (torch.relu(alpha) if self.serving
+                   else _softplus(alpha)).sum(dim=-1)
             self.metric = self.metric + pen
             return None
         if seg == 1:                                   # one info leaf
-            bits = self.fork(*_penalties(self.read(a)[..., 0]))
+            bits = self.fork(*self.pens(self.read(a)[..., 0]), pos)
             return self.buf(bits[..., None], bslot)
         if fr[:-1].all():                              # repetition shortcut
-            alpha = self.read(a)
-            pen0, pen1 = _penalties(alpha)
-            bits = self.fork(pen0.sum(dim=-1), pen1.sum(dim=-1))
+            pen0, pen1 = self.pens(self.read(a))
+            bits = self.fork(pen0.sum(dim=-1), pen1.sum(dim=-1),
+                             pos + seg - 1)
             return self.buf(bits[..., None].expand(-1, -1, seg), bslot)
+        if self.serving and l >= self.node_level:
+            if not fr.any():
+                return self.buf(self.rate1(self.read(a), pos), bslot)
+            if fr[0] and not fr[1:].any():
+                return self.buf(self.spc(self.read(a), pos), bslot)
         h = seg >> 1
         alpha = self.read(a)
         left = self.walk(l + 1, pos,
-                         self.buf(_f_combine(alpha[..., :h], alpha[..., h:]),
+                         self.buf(self.f_comb(alpha[..., :h], alpha[..., h:]),
                                   l + 1))
         alpha = self.read(a)                           # forks permuted it
         right_a = _g_combine(alpha[..., :h], alpha[..., h:], self.read(left))
@@ -187,19 +348,10 @@ class _ListDecoder:
 
 
 @torch.no_grad()
-def scl_decode(llr: torch.Tensor, spec: PolarSpec, list_size: int):
-    """List-decode a batch of LLR vectors on their device.
-
-    Args:
-      llr: (B, N) float32, positive favours bit 1.
-      spec: static code structure.
-      list_size: number of surviving paths L.
-
-    Returns dict with paths sorted by ascending metric along axis 1:
-      info_bits: (B, L, info_len) int32
-      crc_ok:    (B, L) bool
-      metrics:   (B, L) float32
-    """
+def _scl_decode(llr: torch.Tensor, spec: PolarSpec, list_size: int, *,
+                serving: bool = False, block_seg: int = BLOCK_SEG):
+    """One list decode, exact or (``serving``) fast-SSCL; see
+    ``scl_decode`` for the arguments and the result."""
     llr = llr.to(torch.float32)
     if llr.ndim != 2 or llr.shape[1] != spec.N:
         raise ValueError(f"scl_decode: llr of shape {tuple(llr.shape)}; "
@@ -207,7 +359,7 @@ def scl_decode(llr: torch.Tensor, spec: PolarSpec, list_size: int):
     if not np.array_equal(spec.data_pos, np.flatnonzero(~spec.frozen)):
         raise ValueError("scl_decode: spec.data_pos must be the non-frozen "
                          "leaves in ascending order")
-    dec = _ListDecoder(llr, spec, int(list_size))
+    dec = _ListDecoder(llr, spec, int(list_size), serving, int(block_seg))
     dec.walk(0, 0, _Buf(llr[:, None, :], 0, 0))
 
     data = dec.dec.to(torch.int32)
@@ -219,6 +371,55 @@ def scl_decode(llr: torch.Tensor, spec: PolarSpec, list_size: int):
     return {"info_bits": info[rows, order],
             "crc_ok": crc_ok[rows, order],
             "metrics": metric[rows, order]}
+
+
+def _block_seg() -> int:
+    return int(os.environ.get("ECHOSEAL_SCL_BLOCK_SEG", BLOCK_SEG))
+
+
+def scl_decode(llr: torch.Tensor, spec: PolarSpec, list_size: int):
+    """List-decode a batch of LLR vectors on their device.
+
+    ``ECHOSEAL_SCL_IMPL``, read at each call, picks the decoder:
+    ``serving`` the fast-SSCL walk (at ``ECHOSEAL_SCL_BLOCK_SEG``, default
+    16); ``unrolled``, ``blocked``, ``lazy`` or ``dense``, or unset, the
+    exact decoder (the JAX package's four exact formulations give
+    identical lists); any other value raises ``ValueError``.
+
+    Args:
+      llr: (B, N) float32, positive favours bit 1.
+      spec: static code structure.
+      list_size: number of surviving paths L.
+
+    Returns dict with paths sorted by ascending metric along axis 1:
+      info_bits: (B, L, info_len) int32
+      crc_ok:    (B, L) bool
+      metrics:   (B, L) float32
+    """
+    impl = os.environ.get("ECHOSEAL_SCL_IMPL")
+    if impl is not None and impl not in IMPLS:
+        raise ValueError(f"ECHOSEAL_SCL_IMPL={impl!r}: expected one of "
+                         + ", ".join(repr(i) for i in IMPLS))
+    if impl == "serving":
+        return _scl_decode(llr, spec, list_size, serving=True,
+                           block_seg=_block_seg())
+    return _scl_decode(llr, spec, list_size)
+
+
+def scl_decode_serving(llr: torch.Tensor, spec: PolarSpec, list_size: int):
+    """List decode entry for the batch ladder.
+
+    ``ECHOSEAL_SCL_IMPL`` wins when it is set (``scl_decode``).  Otherwise
+    ``ECHOSEAL_SCL_SERVING`` set to anything but ``""`` or ``"0"`` selects
+    the fast-SSCL walk, and the decode is exact without it.  (The JAX
+    package reads any non-empty value, ``"0"`` included, as on.)
+    """
+    if os.environ.get("ECHOSEAL_SCL_IMPL") is not None:
+        return scl_decode(llr, spec, list_size)
+    if os.environ.get("ECHOSEAL_SCL_SERVING", "") not in ("", "0"):
+        return _scl_decode(llr, spec, list_size, serving=True,
+                           block_seg=_block_seg())
+    return _scl_decode(llr, spec, list_size)
 
 
 def scl_decode_np(llr: np.ndarray, spec: PolarSpec, list_size: int,

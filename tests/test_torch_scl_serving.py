@@ -1,0 +1,295 @@
+"""echoseal_torch's fast-SSCL serving decoder and ECHOSEAL_SCL_* switches vs
+echoseal_tpu's, on the CPU.
+
+The serving walk (min-sum f-combine, hard path metric, rate-1 and SPC nodes
+with capped forks) is held against the JAX package's
+``_scl_decode_unrolled(serving=True)`` on the same numpy inputs, at the
+shapes ``tests/test_scl_proof.py`` compiles (B = 4 noiseless at L = 1 and 8,
+the B = 24 waterfall batch at L = 8), so the persistent compile cache can
+serve those JAX programs: metrics within rtol = atol = 1e-4, ``info_bits``
+and ``crc_ok`` path for path, except that paths whose metrics tie within
+that tolerance may come in either order.  The switches route each entry of
+the port as they route the JAX package's, but for ``ECHOSEAL_SCL_SERVING=0``,
+which the JAX package reads as on and the port as off.
+"""
+import numpy as np
+import pytest
+import torch
+
+from echoseal_torch.core import profiles as pprof
+from echoseal_torch.models import detector as PD
+from echoseal_torch.models import pipeline as PP
+from echoseal_torch.models import robust as PR
+from echoseal_torch.ops import polar as ppolar
+from echoseal_torch.ops import scl as pscl
+from echoseal_torch.utils import channels
+from echoseal_tpu.core import profiles as jprof
+from echoseal_tpu.ops import polar as jpolar
+from echoseal_tpu.ops import scl as jscl
+from torch_port_util import two_torch_threads  # noqa: F401
+
+FS = 48_000
+TOL = dict(rtol=1e-4, atol=1e-4)
+ENV = ("ECHOSEAL_SCL_IMPL", "ECHOSEAL_SCL_SERVING", "ECHOSEAL_SCL_BLOCK_SEG")
+
+
+def _specs(which):
+    if which == "compat":
+        return jpolar.polar_spec(), ppolar.polar_spec()
+    return jprof.profile_spec(jprof.ROBUST), pprof.profile_spec(pprof.ROBUST)
+
+
+def _noiseless(spec):
+    rng = np.random.default_rng(7)
+    bits = np.stack([jpolar.encode_np(rng.bytes(55), spec) for _ in range(4)])
+    return (8.0 * (2.0 * bits - 1.0)).astype(np.float32)
+
+
+def _awgn(spec, n, sigma, seed, noise_seed):
+    rng = np.random.default_rng(seed)
+    bits = np.stack([jpolar.encode_np(rng.bytes(55), spec) for _ in range(n)])
+    y = (2.0 * bits - 1.0) + sigma * np.random.default_rng(
+        noise_seed).standard_normal(bits.shape)
+    return (2.0 * y / (sigma * sigma)).astype(np.float32)
+
+
+def _assert_lists_match(got, want):
+    """Metrics within TOL; paths equal one for one, or as multisets inside a
+    run of paths whose metrics tie within TOL."""
+    np.testing.assert_allclose(got["metrics"], want["metrics"], **TOL)
+    np.testing.assert_array_equal(got["crc_ok"].any(-1),
+                                  want["crc_ok"].any(-1))
+    for i, m in enumerate(want["metrics"]):
+        cut = np.flatnonzero(~np.isclose(m[1:], m[:-1], **TOL)) + 1
+        for grp in np.split(np.arange(m.size), cut):
+            def paths(r):
+                return sorted((bool(r["crc_ok"][i, p]),
+                               r["info_bits"][i, p].tobytes()) for p in grp)
+            if grp.size == 1:
+                p = grp[0]
+                assert got["crc_ok"][i, p] == want["crc_ok"][i, p], (i, p)
+                np.testing.assert_array_equal(got["info_bits"][i, p],
+                                              want["info_bits"][i, p])
+            else:
+                assert paths(got) == paths(want), (i, grp.tolist())
+
+
+def _both(llr, jspec, pspec, L, block_seg=16):
+    want = {k: np.asarray(v) for k, v in jscl._scl_decode_unrolled(
+        llr, jspec, L, block_seg, serving=True).items()}
+    got = {k: v.numpy() for k, v in pscl._scl_decode(
+        torch.from_numpy(llr), pspec, L, serving=True,
+        block_seg=block_seg).items()}
+    assert got["info_bits"].dtype == np.int32
+    assert got["info_bits"].shape == want["info_bits"].shape
+    return got, want
+
+
+# ------------------------------------------------------------ primitives
+def test_primitives_equal_jax():
+    """Min-sum f, hard penalties and the GF(2) transform, bit for bit, on
+    values with zeros and ties."""
+    rng = np.random.default_rng(11)
+    a = np.concatenate([rng.integers(-3, 4, 512),
+                        rng.standard_normal(512) * 6]).astype(np.float32)
+    b = np.concatenate([rng.integers(-3, 4, 512),
+                        rng.standard_normal(512) * 6]).astype(np.float32)
+    assert (a == 0).any() and (np.abs(a) == np.abs(b)).any()
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    np.testing.assert_array_equal(pscl._f_combine_ms(ta, tb).numpy(),
+                                  np.asarray(jscl._f_combine_ms(a, b)))
+    np.testing.assert_array_equal(pscl._f_combine_ms(ta, ta).numpy()[a > 0],
+                                  -a[a > 0])        # log p1/p0: 1 ^ 1 = 0
+    for got, want in zip(pscl._penalties_hard(ta), jscl._penalties_hard(a)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    zero = torch.from_numpy(a == 0)
+    assert [float(p[zero].abs().max()) for p in pscl._penalties_hard(ta)
+            ] == [0.0, 0.0]
+    for seg in (1, 2, 8, 32):
+        beta = rng.integers(0, 2, (3, 4, seg)).astype(np.int32)
+        want = np.asarray(jscl._gf2_transform(beta))
+        np.testing.assert_array_equal(
+            pscl._gf2_transform(torch.from_numpy(beta)).numpy(), want)
+        np.testing.assert_array_equal(
+            pscl._gf2_transform(torch.from_numpy(beta.astype(bool))).numpy(),
+            want.astype(bool))
+
+
+# ------------------------------------------------------- the serving walk
+@pytest.mark.parametrize("case", ["noiseless-L1", "noiseless-L8",
+                                  "zero-L8", "waterfall-L8"])
+@pytest.mark.parametrize("which", ["compat", "v2"])
+def test_serving_decode_matches_jax(which, case):
+    jspec, pspec = _specs(which)
+    kind, L = case.split("-L")
+    L = int(L)
+    if kind == "noiseless":
+        llr = _noiseless(jspec)
+    elif kind == "zero":                       # every candidate ties
+        llr = np.zeros((4, jspec.N), np.float32)
+    else:                                      # test_scl_proof's batch
+        llr = _awgn(jspec, 24, 0.35, 4242, 31)
+    got, want = _both(llr, jspec, pspec, L)
+    _assert_lists_match(got, want)
+    if kind == "zero":
+        for k in ("info_bits", "crc_ok", "metrics"):
+            np.testing.assert_array_equal(got[k], want[k])
+    elif kind == "noiseless":
+        assert got["crc_ok"][:, 0].all() and (got["metrics"][:, 0] == 0).all()
+    else:
+        assert got["crc_ok"].any()
+
+
+def test_block_seg_8_matches_jax(monkeypatch):
+    """``ECHOSEAL_SCL_BLOCK_SEG=8``: 16-leaf nodes, as the JAX package's."""
+    jspec, pspec = _specs("v2")
+    llr = _awgn(jspec, 4, 0.45, 99, 100)
+    monkeypatch.setenv("ECHOSEAL_SCL_IMPL", "serving")
+    monkeypatch.setenv("ECHOSEAL_SCL_BLOCK_SEG", "8")
+    got = {k: v.numpy() for k, v in pscl.scl_decode(
+        torch.from_numpy(llr), pspec, 8).items()}
+    want = {k: np.asarray(v) for k, v in jscl._scl_decode_unrolled(
+        llr, jspec, 8, 8, serving=True).items()}
+    _assert_lists_match(got, want)
+    assert pscl._node_level(10, 8) == 6 and pscl._node_level(10, 16) == 5
+
+
+# ------------------------------------------------------------- switches
+def _route_port(monkeypatch):
+    def fake(llr, spec, L, serving=False, block_seg=pscl.BLOCK_SEG):
+        return ("serving", block_seg) if serving else "exact"
+    monkeypatch.setattr(pscl, "_scl_decode", fake)
+
+
+def _route_jax(monkeypatch):
+    def unrolled(llr, spec, L, block_seg=16, serving=False):
+        return ("serving", block_seg) if serving else "exact"
+    monkeypatch.setattr(jscl, "_scl_decode_unrolled", unrolled)
+    for name in ("_scl_decode_lazy", "_scl_decode_blocked",
+                 "_scl_decode_dense"):
+        monkeypatch.setattr(jscl, name, lambda *a, **k: "exact")
+
+
+@pytest.mark.parametrize("entry,env,port,jax", [
+    ("scl_decode", {}, "exact", "exact"),
+    ("scl_decode", {"IMPL": "serving"}, ("serving", 16), ("serving", 16)),
+    ("scl_decode", {"IMPL": "serving", "BLOCK_SEG": "8"}, ("serving", 8),
+     ("serving", 8)),
+    ("scl_decode", {"IMPL": "unrolled"}, "exact", "exact"),
+    ("scl_decode", {"IMPL": "blocked"}, "exact", "exact"),
+    ("scl_decode", {"IMPL": "lazy"}, "exact", "exact"),
+    ("scl_decode", {"IMPL": "dense"}, "exact", "exact"),
+    ("scl_decode", {"IMPL": "servng"}, ValueError, ValueError),
+    ("scl_decode", {"SERVING": "1"}, "exact", "exact"),
+    ("scl_decode_serving", {}, "exact", "exact"),
+    ("scl_decode_serving", {"SERVING": "1"}, ("serving", 16), ("serving", 16)),
+    ("scl_decode_serving", {"SERVING": "1", "BLOCK_SEG": "8"}, ("serving", 8),
+     ("serving", 8)),
+    ("scl_decode_serving", {"SERVING": "1", "IMPL": "lazy"}, "exact", "exact"),
+    ("scl_decode_serving", {"IMPL": "serving"}, ("serving", 16),
+     ("serving", 16)),
+    ("scl_decode_serving", {"SERVING": "1", "IMPL": "typo"}, ValueError,
+     ValueError),
+    ("scl_decode_serving", {"SERVING": ""}, "exact", "exact"),
+    # the one divergence: the JAX package reads any non-empty value as on
+    ("scl_decode_serving", {"SERVING": "0"}, "exact", ("serving", 16)),
+])
+def test_switch_routing(monkeypatch, entry, env, port, jax):
+    for name in ENV:
+        monkeypatch.delenv(name, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(f"ECHOSEAL_SCL_{k}", v)
+    _route_port(monkeypatch)
+    _route_jax(monkeypatch)
+    for mod, want in ((pscl, port), (jscl, jax)):
+        fn = getattr(mod, entry)
+        if want is ValueError:
+            with pytest.raises(ValueError, match="'serving', 'unrolled', "
+                               "'blocked', 'lazy', 'dense'"):
+                fn(None, None, 8)
+        else:
+            assert fn(None, None, 8) == want, mod.__name__
+
+
+# ------------------------------------------------------------ call sites
+def _spy_decoder(monkeypatch):
+    """Record (serving, L, rows) of every decode the port runs."""
+    calls = []
+    orig = pscl._scl_decode
+
+    def spy(llr, spec, L, **kw):
+        calls.append((kw.get("serving", False), int(L), int(llr.shape[0])))
+        return orig(llr, spec, L, **kw)
+    monkeypatch.setattr(pscl, "_scl_decode", spy)
+    for name in ENV:
+        monkeypatch.delenv(name, raising=False)
+    return calls
+
+
+def _v2_corpus(key32):
+    """tests/test_torch_robust.py's ``v2_batch`` corpus at seed 0."""
+    T, TPAD = int(3.5 * FS), 1 << 18
+    host = (0.15 * np.sin(2 * np.pi * 700 * np.arange(T) / FS)
+            ).astype(np.float32)
+    tx_loud = PR.RobustEmbedder(key32, rng=np.random.default_rng(0))
+    tx_loud._session_nonce = b"sessionA"
+    wm_loud = tx_loud.process(host)
+    tx_sil = PR.RobustEmbedder(key32, rng=np.random.default_rng(1))
+    tx_sil._session_nonce = b"sessionB"
+    wm_sil = tx_sil.process(np.zeros(T, np.float32))
+    rms = float(np.sqrt(np.mean(wm_sil**2)))
+    rng = np.random.default_rng(3)
+    clips = np.zeros((4, TPAD), np.float32)
+    clips[0, :T] = wm_loud
+    clips[1, :T] = channels.codec_sim(wm_loud, 128.0)[:T]
+    clips[2, :T] = wm_sil + rms * 10 ** (-4 / 20) * rng.standard_normal(
+        T).astype(np.float32)
+    clips[3, :T] = 0.05 * rng.standard_normal(T).astype(np.float32)
+    return clips, np.full(4, T, dtype=np.int32)
+
+
+@pytest.fixture(scope="module")
+def corpus(key32):
+    return _v2_corpus(key32)
+
+
+def test_ladder_serving_switch(key32, corpus, monkeypatch):
+    """``ECHOSEAL_SCL_SERVING=1``: every rung of the batch ladder decodes
+    through the serving walk at its L, with the exact ladder's verdicts."""
+    clips, nv = corpus
+    calls = _spy_decoder(monkeypatch)
+    pv = PP.RobustBatchVerifier(key32, max_ctr=4096, device="cpu")
+    exact_details = {}
+    v_exact = pv.verify_batch(clips, nv, details=exact_details)
+    assert calls and not any(s for s, _, _ in calls)
+    calls.clear()
+    monkeypatch.setenv("ECHOSEAL_SCL_SERVING", "1")
+    details = {}
+    v = pv.verify_batch(clips, nv, details=details)
+    assert v.tolist() == v_exact.tolist() == [True, True, True, False]
+    assert details[2].stage == exact_details[2].stage == "scl"
+    assert details[2].session_nonce == b"sessionB"
+    assert [(True, L, n) for _, L, n, _ in pv.scl_rungs] == calls
+
+
+def test_single_clip_tiers_follow_impl_only(key32, corpus, monkeypatch):
+    """``ECHOSEAL_SCL_IMPL=serving`` reaches both single-clip tiers'
+    decodes; ``ECHOSEAL_SCL_SERVING`` does not (as in the JAX package)."""
+    clips, nv = corpus
+    calls = _spy_decoder(monkeypatch)
+    det = PD.WatermarkDetector(key32, list_size=8, device="cpu")
+    rv = PR.RobustVerifier(key32, list_size=8, device="cpu")
+    noise = (0.1 * np.random.default_rng(5).standard_normal(nv[0])
+             ).astype(np.float32)
+    for env, serving in (("ECHOSEAL_SCL_SERVING", False),
+                         ("ECHOSEAL_SCL_IMPL", True)):
+        monkeypatch.setenv(env, "1" if env.endswith("SERVING") else "serving")
+        assert not det.verify_detailed(noise, FS).authentic
+        assert calls and {c[:2] for c in calls} == {(serving, 8)}
+        calls.clear()
+        rv.session_nonce = None
+        r = rv.verify_detailed(clips[2, :nv[2]], FS)
+        assert r.authentic and r.stage == "scl"
+        assert calls and {c[:2] for c in calls} == {(serving, 8)}
+        calls.clear()
+        monkeypatch.delenv(env)
