@@ -16,7 +16,13 @@ line):
    start event, so the card is still busy while the host runs the
    wrapper's checks and its ``ctypes`` launch, and the CUDA events bracket
    the kernel alone; the wrapper's host launch path is a separate
-   host-clock reading (``launch_host_us``);
+   host-clock reading (``launch_host_us``).  (a) ``payload_llr``, the
+   LLR-only port of the TPU kernel; (b) ``payload_decode``, its redesign
+   that every main path runs (PN gather, LLR, hard polar decode, CRC-8),
+   on inputs with CRC-passing rows: info bits and ``crc_ok`` exact, LLRs
+   within rtol = atol = KERNEL_TOL, its time beside ``payload_llr``'s, a one-element
+   op's (the launch floor) and, on the host clock, the chain of torch
+   ops and ``payload_llr`` it replaces;
 4. compat main path at full width: a 4096-frame stream from the port's
    host TX (every random byte drawn from ``SEED``), B = 1024 clips of 3 s
    at 48 kHz cut at frame-aligned random starts,
@@ -166,7 +172,9 @@ seconds the row waited for them.
 
 Before the last line it prints ``{"kernels": [...]}``: each kernel at the
 v2 path's shape, with its launches counted over every main path (each
-path driven with the counts set to 0 just before it).  The last line is
+path driven with the counts set to 0 just before it): ``payload_decode``
+on every main path, which launches ``payload_llr`` no more, and
+``payload_llr`` in phase 23's diagnostics.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 from __future__ import annotations
@@ -201,6 +209,7 @@ PEAKS = 2
 V2_PEAKS = 4
 V2_NP = 2                     # lam profiles of the v2 LS demod
 SEED = 0
+COMPAT_SCALE = 10.0 ** (-35.0 / 20.0)   # phase 4's clips: 35 dB down
 KERNEL_TOL = 1e-4
 N_CPU_LADDER = 16             # SCL-ladder clips re-verified on the CPU
 N_SCL256 = 128
@@ -255,6 +264,14 @@ def check(cond, msg: str) -> None:
     if not cond:
         print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
         raise SystemExit(1)
+
+
+def decode_launches(launches) -> int:
+    """payload_decode's launches in ``launches`` (one path's counts from 0),
+    after checking that the path launched payload_llr no more."""
+    check(launches.get("payload_llr", 0) == 0,
+          f"payload_llr launched on a main path: {dict(launches)}")
+    return launches.get("payload_decode", 0)
 
 
 def busy_cycles(torch, us: float = BUSY_US) -> tuple[int, float]:
@@ -324,14 +341,13 @@ def stage_ms(start, marks) -> dict[str, float]:
     return out
 
 
-def kernel_phase(torch, llr, flush):
-    """Phase 3: payload_llr vs its plain version at every path's shape.
+def kernel_phase(torch, llr, flush, busy, mhz):
+    """Phase 3a: payload_llr vs its plain version at every path's shape.
 
     Returns (max error over all shapes, the v2-shape ``kernels`` entry).
     """
     from echoseal_torch.core.params import FRAME_LEN
 
-    busy, mhz = busy_cycles(torch)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     entry, max_err = None, 0.0
     for lead in ((13,), (37,), (800,), (B, 4, PEAKS), (B, 4, V2_NP, V2_PEAKS)):
@@ -378,6 +394,197 @@ def kernel_phase(torch, llr, flush):
     return max_err, entry
 
 
+def host_sync_ms(fn, torch, n: int = 25) -> float:
+    """Median host-clock ms of ``fn`` and a synchronise: a call's cost to
+    its caller, launches and device work both."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def _decode_inputs(torch, lead, spec, gen):
+    """Chips carrying real codewords of ``spec`` under noise rising along
+    the rows (the low-noise rows pass the CRC), a PN bit table and each
+    row's index.  At batch row counts the table is the batch tier's: int8,
+    MAX_CTR rows, int32 counters; at single-clip row counts the tiers':
+    uint8 rows of the distinct counters, int64 indices."""
+    from echoseal_torch.core.params import FRAME_LEN, HDR_L, PRE_L
+    from echoseal_torch.ops.polar import encode_np
+
+    n = int(np.prod(lead))
+    rng = np.random.default_rng(SEED + 11)
+    book = torch.from_numpy(np.stack([
+        encode_np(rng.bytes(spec.info_len // 8), spec)
+        for _ in range(16)])).cuda().float()
+    batch = n >= 8192
+    m = MAX_CTR if batch else n // 2 + 1
+    table = torch.randint(0, 2, (m, 1024), device="cuda", generator=gen,
+                          dtype=torch.int8 if batch else torch.uint8)
+    idx = torch.randint(0, m, (n,), device="cuda", generator=gen,
+                        dtype=torch.int32 if batch else torch.int64)
+    pick = torch.randint(0, 16, (n,), device="cuda", generator=gen)
+    sent = (2.0 * book[pick] - 1.0) * (2.0 * table[idx.long()].float() - 1.0)
+    sigma = torch.linspace(0.05, 1.6, n, device="cuda")[:, None]
+    chips = 0.05 * torch.randn(n, FRAME_LEN, device="cuda", generator=gen)
+    chips[:, PRE_L + HDR_L:] = 0.05 * (sent + sigma * torch.randn(
+        n, 1024, device="cuda", generator=gen))
+    return chips.reshape(*lead, FRAME_LEN), table, idx.reshape(lead)
+
+
+def decode_kernel_phase(torch, llr, flush, busy):
+    """Phase 3b: payload_decode vs its plain version, and beside the chain
+    it replaces, at every path's row count.
+
+    13, 37, 800 and 8192 rows (compat spec, no LLRs) and the v2 lattice of
+    32 768 rows (the v2 spec, with LLRs), on inputs with CRC-passing rows:
+    info bits and crc_ok exact, LLRs (a launch with LLRs at every row
+    count) within rtol = atol = KERNEL_TOL, the contract of the TPU
+    kernel's own test.  An absolute bound does not hold on such rows: the
+    LLRs reach +-16 and, where the amplitude estimate a nears 1, s2 = 1 - a^2
+    magnifies the rounding of the row sums ~30-fold, so two float32 orders
+    of summation differ by ~1e-4.  Each line gives both float32 versions'
+    distance from the plain version in float64 (``f64_max_abs_err``: the
+    largest and the rms), and the kernel must stay as accurate as the plain
+    version: its rms at most twice the plain one's at every row count, its
+    largest at most twice the plain one's over all of them (a largest
+    over a few rows depends on which rows near the amplitude clip).
+    ``bound_ms`` counts each input byte once: the PN bytes of the distinct
+    table rows the indices name (``pn_rows_read``), not one row per chip
+    row.  Device times with the busy harness, in turns:
+    the kernel (``ms``) and ``payload_llr`` alone at these rows; then its
+    plain version and ``floor_ms``, a one-element add (the launch floor).
+    Host clock with a synchronise per call, in turns: the kernel's wrapper
+    (``call_ms``), the chain it replaces (``chain_ms``: PN gather,
+    ``payload_llr``, ``hard_decode_batch``) and that chain with the two
+    table uploads per call that ``hard_decode_batch`` made before the
+    per-device cache (``chain_uploads_ms``).  Returns (max LLR error, the
+    v2-row ``kernels`` entry).
+    """
+    from echoseal_torch.core.params import FRAME_LEN
+    from echoseal_torch.core.profiles import ROBUST, profile_spec
+    from echoseal_torch.ops.polar import hard_decode_batch, polar_spec
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    one = torch.zeros(1, device="cuda")
+    entry, max_err = None, 0.0
+    f64_max = {"kernel": 0.0, "plain": 0.0}
+    for lead in ((13,), (37,), (800,), (B, 4, PEAKS), (B, 4, V2_NP, V2_PEAKS)):
+        v2 = len(lead) == 4
+        spec = profile_spec(ROBUST) if v2 else polar_spec()
+        chips, table, idx = _decode_inputs(torch, lead, spec, gen)
+        full = llr.payload_decode(chips, table, idx, spec, want_llr=True)
+        got = llr.payload_decode(chips, table, idx, spec, want_llr=v2)
+        ref = llr.payload_decode_plain(chips, table, idx, spec, want_llr=True)
+        exact64 = llr.payload_decode_plain(chips.double(), table, idx, spec,
+                                           want_llr=True)[0]
+        torch.cuda.synchronize()
+        n = int(np.prod(lead))
+        diff = (full[0] - ref[0]).abs()
+        err = float(diff.max())
+        tol_used = float((diff / (KERNEL_TOL * (1.0 + ref[0].abs()))).max())
+        f64_err = {}
+        for who, x in (("kernel", full[0]), ("plain", ref[0])):
+            d64 = x - exact64
+            f64_err[who] = float(d64.abs().max())
+            f64_err[who + "_rms"] = float(d64.square().mean().sqrt())
+            f64_max[who] = max(f64_max[who], f64_err[who])
+        check(f64_err["kernel_rms"] <= 2.0 * f64_err["plain_rms"],
+              f"payload_decode at {lead}: float64 distance {f64_err}, the "
+              "kernel's rms over twice the plain version's")
+        exact = all(torch.equal(a[i], ref[i]) for a in (full, got)
+                    for i in (1, 2))
+        n_pass = int(ref[2].sum())
+        max_err = max(max_err, err)
+        check(tol_used <= 1.0 and exact,
+              f"payload_decode at {lead}: LLR err {err} ({tol_used} of the "
+              f"tolerance), info and crc_ok exact {exact}")
+        check(0 < n_pass < n, f"payload_decode at {lead}: {n_pass} of {n} "
+                              "rows pass the CRC")
+        del full, got, ref, exact64, diff
+
+        def kernel():
+            llr.payload_decode(chips, table, idx, spec, want_llr=v2)
+
+        def plain():
+            llr.payload_decode_plain(chips, table, idx, spec, want_llr=v2)
+
+        pn_sy = 2.0 * table[idx.long()].float() - 1.0
+
+        def llr_alone():
+            llr.payload_llr(chips, pn_sy)
+
+        def chain():
+            hard_decode_batch(llr.payload_llr(
+                chips, 2.0 * table[idx.long()].float() - 1.0), spec)
+
+        def chain_uploads():
+            torch.as_tensor(spec.data_pos, device="cuda")
+            torch.as_tensor(spec.crc_mat, dtype=torch.float32, device="cuda")
+            chain()
+
+        dev = {"ms": [], "payload_llr_ms": []}
+        for name, fn in (("ms", kernel), ("payload_llr_ms", llr_alone),
+                         ("payload_llr_ms", llr_alone), ("ms", kernel)):
+            dev[name].append(cuda_ms(fn, torch, flush=flush, busy=busy))
+        call = {"call_ms": [], "chain_ms": [], "chain_uploads_ms": []}
+        for name, fn in (("call_ms", kernel), ("chain_ms", chain),
+                         ("chain_uploads_ms", chain_uploads),
+                         ("chain_uploads_ms", chain_uploads),
+                         ("chain_ms", chain), ("call_ms", kernel)):
+            call[name].append(host_sync_ms(fn, torch))
+        del pn_sy
+        # the PN bytes of each distinct table row the rows read, once
+        pn_rows = int(torch.unique(
+            idx.long().clamp(0, table.shape[0] - 1)).numel())
+        n_bytes = (n * (4096 + idx.element_size() + 4 * spec.info_len + 1
+                        + (4096 if v2 else 0))
+                   + 1024 * pn_rows + 2 * 1024 + spec.info_len)
+        n_ops = 20 * n * 1024                   # ~20 fp32 ops per element
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+        line = {"phase": "kernel_check", "name": "payload_decode", "rows": n,
+                "shape": list(lead) + [FRAME_LEN],
+                "spec": f"K={spec.K} " + ("standard" if v2 else "compat"),
+                "want_llr": v2,
+                "table": [list(table.shape), str(table.dtype),
+                          str(idx.dtype)],
+                "max_abs_err": err, "tol_used": tol_used,
+                "f64_max_abs_err": f64_err, "info_crc_ok_exact": exact,
+                "crc_ok_rows": n_pass, "pn_rows_read": pn_rows,
+                "ms": statistics.mean(dev["ms"]), "ms_turns": dev["ms"],
+                "payload_llr_ms": statistics.mean(dev["payload_llr_ms"]),
+                "plain_ms": cuda_ms(plain, torch, flush=flush, busy=busy),
+                "floor_ms": cuda_ms(lambda: one.add_(1.0), torch,
+                                    flush=flush, busy=busy),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None,
+                "launch_host_us": host_us(kernel, torch),
+                **{k: statistics.mean(v) for k, v in call.items()},
+                "host_turns_ms": call}
+        emit(line)
+        if v2:
+            entry = {
+                "name": "payload_decode", "route": "cuda",
+                "source": "echoseal_torch/csrc/payload_decode.cu",
+                "replaces": "echoseal_tpu/ops/pallas/llr_kernel.py:51",
+                "launches": None, "max_abs_err": None,
+                **{k: line[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "floor_ms")},
+            }
+    check(f64_max["kernel"] <= 2.0 * f64_max["plain"],
+          f"payload_decode: largest float64 distance {f64_max}, the "
+          "kernel's over twice the plain version's")
+    return max_err, entry
+
+
 def compat_phases(torch, card):
     """Phases 4-6.
 
@@ -400,17 +607,8 @@ def compat_phases(torch, card):
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
     t0 = time.perf_counter()
-    n_frames = -(-T // FRAME_LEN)
     rng = np.random.default_rng(SEED)
-    host_frames = frames_np(bv.sec, bv._hop, np.arange(STREAM_FRAMES),
-                            bytes(8), rng=rng)
-    stream = torch.from_numpy(host_frames.reshape(-1))
-    starts = rng.integers(0, STREAM_FRAMES - n_frames, B) * FRAME_LEN
-    scale = 10.0 ** (-35.0 / 20.0)
-    clips = torch.zeros(B, TPAD, device="cuda")
-    clips[:, :T] = demod.slice_windows(
-        stream.cuda(), torch.from_numpy(starts).cuda(), T) * scale
-    nv = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    host_frames, starts, clips, nv = compat_clips(torch, bv, rng)
     tx_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
@@ -429,8 +627,8 @@ def compat_phases(torch, card):
         check(False, f"accept rate {accept}: rejected clips {rej.tolist()}, "
                      f"frame starts {(starts[rej] // FRAME_LEN).tolist()}, "
                      f"CRC-passing candidates {crc.sum(1).tolist()}")
-    check(launches.get("payload_llr", 0) > 0,
-          "payload_llr never launched on the compat path")
+    check(decode_launches(launches) > 0,
+          "payload_decode never launched on the compat path")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     noise = 0.05 * torch.randn(64, TPAD, device="cuda", generator=gen)
@@ -441,8 +639,9 @@ def compat_phases(torch, card):
     check(not bad_acc.any(), f"{int(bad_acc.sum())} wrong-key clips accepted")
     del bad
     far = np.zeros((1, TPAD), np.float32)
-    far[0, :T] = frames_np(bv.sec, bv._hop, np.arange(70_000, 70_000 + n_frames),
-                           bytes(8), rng=rng).reshape(-1)[:T] * scale
+    far[0, :T] = frames_np(bv.sec, bv._hop,
+                           np.arange(70_000, 70_000 + -(-T // FRAME_LEN)),
+                           bytes(8), rng=rng).reshape(-1)[:T] * COMPAT_SCALE
     table_only = bv.finish_host(bv.run_device(far, nv[:1]))
     details = {}
     rescued = bv.verify_batch(far, nv[:1], details=details)
@@ -511,10 +710,59 @@ def compat_phases(torch, card):
           "chips_max_abs_diff": float((g["chips"] - c["chips"]).abs().max()),
           "chips_sign_agree": float((g["chips"].sign() == c["chips"].sign())
                                     .float().mean())})
-    return launches["payload_llr"], bv, host_frames, starts
+    return decode_launches(launches), bv, host_frames, starts
 
 
-def _v2_stream(torch, rng, host):
+def tone_host(n: int) -> np.ndarray:
+    """``n`` samples of the 700 Hz host at amplitude 0.15."""
+    return (0.15 * np.sin(2 * np.pi * 700 * np.arange(n) / FS)
+            ).astype(np.float32)
+
+
+def compat_clips(torch, bv, rng):
+    """Phase 4's clips: a STREAM_FRAMES-frame stream from the port's host
+    TX under ``bv``'s key (every random byte from ``rng``), B clips of 3 s
+    cut at frame-aligned random starts, 35 dB down, in rows of TPAD.
+    Returns (the host frames, the starts, the clips, the valid lengths)."""
+    from echoseal_torch.core.params import FRAME_LEN
+    from echoseal_torch.models.embedder import frames_np
+    from echoseal_torch.ops import demod
+
+    host_frames = frames_np(bv.sec, bv._hop, np.arange(STREAM_FRAMES),
+                            bytes(8), rng=rng)
+    stream = torch.from_numpy(host_frames.reshape(-1))
+    starts = rng.integers(0, STREAM_FRAMES - -(-T // FRAME_LEN), B) * FRAME_LEN
+    clips = torch.zeros(B, TPAD, device="cuda")
+    clips[:, :T] = demod.slice_windows(
+        stream.cuda(), torch.from_numpy(starts).cuda(), T) * COMPAT_SCALE
+    nv = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    return host_frames, starts, clips, nv
+
+
+def compat_single_cuts():
+    """Phase 16's data: a 16 s silence-host stream from the seeded
+    ``BatchEmbedder`` and N_SINGLE distinct 3.5 s cut starts.  Returns
+    (the generator, the stream, the starts)."""
+    from echoseal_torch.models.embedder import BatchEmbedder
+
+    rng = np.random.default_rng(SEED + 6)
+    stream = BatchEmbedder(KEY).embed(np.zeros(16 * FS, np.float32),
+                                      session_nonce=b"smokeses", rng=rng)
+    return rng, stream, rng.choice(stream.size - T35, N_SINGLE, replace=False)
+
+
+def v2_single_cuts():
+    """Phase 17's data: a 20 s tone host through the seeded
+    ``RobustEmbedder`` and N_SINGLE distinct 3.5 s cut starts.  Returns
+    (the generator, the stream, the starts)."""
+    from echoseal_torch.models.robust import RobustEmbedder
+
+    rng = np.random.default_rng(SEED + 7)
+    stream = RobustEmbedder(KEY, rng=rng).process(tone_host(20 * FS))
+    return rng, stream, rng.choice(stream.size - T35, N_SINGLE, replace=False)
+
+
+def v2_clips(torch, rng, host):
     """A seeded v2 TX stream of ``host`` and B random 3 s cuts of it."""
     from echoseal_torch.models.robust import RobustEmbedder
     from echoseal_torch.ops import demod
@@ -558,9 +806,8 @@ def v2_phases(torch, card):
 
     rng = np.random.default_rng(SEED + 1)
     t0 = time.perf_counter()
-    host = (0.15 * np.sin(2 * np.pi * 700 * np.arange(STREAM_S_V2 * FS) / FS)
-            ).astype(np.float32)
-    stream, starts, clips = _v2_stream(torch, rng, host)
+    host = tone_host(STREAM_S_V2 * FS)
+    stream, starts, clips = v2_clips(torch, rng, host)
     nv = torch.full((B,), T, dtype=torch.int32, device="cuda")
     tx_s = time.perf_counter() - t0
 
@@ -579,8 +826,8 @@ def v2_phases(torch, card):
           f"v2 accept rate {accept}: rejected clips "
           f"{np.flatnonzero(~verdicts).tolist()} at samples "
           f"{starts[~verdicts].tolist()}")
-    check(launches.get("payload_llr", 0) > 0,
-          "payload_llr never launched on the v2 path")
+    check(decode_launches(launches) > 0,
+          "payload_decode never launched on the v2 path")
     stages = {s: sum(d.stage == s for d in details.values())
               for s in ("hard", "scl", "ext_ctr")}
 
@@ -640,7 +887,7 @@ def v2_phases(torch, card):
 
     # ---- 9. the SCL ladder at full width -------------------------------------
     rng = np.random.default_rng(SEED + 2)
-    _, _, sil = _v2_stream(torch, rng, np.zeros(STREAM_S_V2 * FS, np.float32))
+    _, _, sil = v2_clips(torch, rng, np.zeros(STREAM_S_V2 * FS, np.float32))
     rms = float(torch.sqrt(torch.mean(sil[:, :T] ** 2)))
     sil[:, :T] += rms * 10 ** (-4 / 20) * torch.randn(B, T, device="cuda",
                                                        generator=gen)
@@ -737,7 +984,7 @@ def v2_phases(torch, card):
           "chips_max_abs_diff": float((g["chips"] - c["chips"]).abs().max()),
           "chips_max_row_rel_diff": float(rel.max())})
     del rv._scl_fallback                       # the counting wrapper
-    return launches["payload_llr"], rv, cpu, stream, ladder_clips
+    return decode_launches(launches), rv, cpu, stream, ladder_clips
 
 
 def tx_phase(torch, card, bv, host_frames):
@@ -788,8 +1035,8 @@ def tx_phase(torch, card, bv, host_frames):
     launches = dict(build.LAUNCHES)
     check(verdicts.all(), f"device-made TX: rejected clips "
                           f"{np.flatnonzero(~verdicts).tolist()}")
-    check(launches.get("payload_llr", 0) > 0,
-          "payload_llr never launched on the device-TX verify")
+    check(decode_launches(launches) > 0,
+          "payload_decode never launched on the device-TX verify")
     chips_s = STREAM_FRAMES * FRAME_LEN / FS
     emit({"phase": "tx_device", "card": card, "frames": STREAM_FRAMES,
           "max_abs_err_vs_frames_np": err, "tol": TX_TOL,
@@ -799,7 +1046,7 @@ def tx_phase(torch, card, bv, host_frames):
           "device_part_ms": dev_ms,
           "verify_clips": N_TX_CLIPS, "verify_accept": float(verdicts.mean()),
           "launches": launches})
-    return launches["payload_llr"]
+    return decode_launches(launches)
 
 
 def _spy_retries(verifier):
@@ -875,8 +1122,8 @@ def recover_phases(torch, card, rv, cpu, stream):
     check(accept == 1.0,
           f"44.1 kHz accept rate {accept}: rejected clips "
           f"{np.flatnonzero(~verdicts).tolist()}")
-    check(launches_ingest.get("payload_llr", 0) > 0,
-          "payload_llr never launched on the ingest path")
+    check(decode_launches(launches_ingest) > 0,
+          "payload_decode never launched on the ingest path")
     ingest_ms = cuda_ms(lambda: rv._ingest(cap, nv44, 44_100), torch, n=3)
     calls = []
     for _ in range(2):
@@ -965,8 +1212,8 @@ def recover_phases(torch, card, rv, cpu, stream):
     check(accept >= RECOVER_GATE, f"recovery accept {accept} < {RECOVER_GATE}")
     # one launch per run_device (the first pass and each retry round), and
     # one per extended-counter pass that the ladders reach
-    check(launches_rec.get("payload_llr", 0) >= 1 + len(rounds),
-          f"payload_llr launches {launches_rec} vs 1 + {len(rounds)} rounds")
+    check(decode_launches(launches_rec) >= 1 + len(rounds),
+          f"payload_decode launches {launches_rec} vs 1 + {len(rounds)} rounds")
     check(sum(r["host_rows"] for r in rounds) == 0,
           "a +-5 % factor left the device resampler family")
 
@@ -1018,7 +1265,7 @@ def recover_phases(torch, card, rv, cpu, stream):
           "verdicts": v_g.tolist(), "verdicts_equal": True,
           "equal_to_full_batch": v_g.tolist() == rec[:4].tolist(),
           "tried_keys": keys_g, "tried_keys_equal": True, "cpu_s": cpu_s})
-    return (launches_ingest["payload_llr"], launches_rec["payload_llr"],
+    return (decode_launches(launches_ingest), decode_launches(launches_rec),
             (scaled_np, nvs, line))
 
 
@@ -1048,14 +1295,11 @@ def compat_single_phase(torch, card):
     """Phase 16; returns (kernel launches of the 30 verifies, the stream,
     the rejected clips' seconds)."""
     from echoseal_torch.models.detector import WatermarkDetector
-    from echoseal_torch.models.embedder import BatchEmbedder, WatermarkEmbedder
+    from echoseal_torch.models.embedder import WatermarkEmbedder
     from echoseal_torch.ops import build
     from echoseal_torch.utils.logging import Timer
 
-    rng = np.random.default_rng(SEED + 6)
-    stream = BatchEmbedder(KEY).embed(np.zeros(16 * FS, np.float32),
-                                      session_nonce=b"smokeses", rng=rng)
-    starts = rng.choice(stream.size - T35, N_SINGLE, replace=False)
+    rng, stream, starts = compat_single_cuts()
     det = WatermarkDetector(KEY)
     check(det.device.type == "cuda" and det._list_size == 256,
           "WatermarkDetector defaults changed")
@@ -1078,8 +1322,8 @@ def compat_single_phase(torch, card):
         tries.append(r.tries)
     launches = dict(build.LAUNCHES)
     split = _timer_totals(Timer)
-    check(launches.get("payload_llr", 0) >= N_SINGLE,
-          f"payload_llr launches on the compat single-clip path: {launches}")
+    check(decode_launches(launches) >= N_SINGLE,
+          f"payload_decode launches on the compat single-clip path: {launches}")
 
     cut = stream[starts[0]:starts[0] + T35]
     rejects = {}
@@ -1104,7 +1348,7 @@ def compat_single_phase(torch, card):
           "host_split_30_clips": split, "rejects": rejects,
           "raw_frame": {"right_key": raw_ok, "seconds": raw_s,
                         "wrong_key": raw_bad, "wrong_key_seconds": raw_bad_s}})
-    return (launches["payload_llr"], stream,
+    return (decode_launches(launches), stream,
             {k: v["seconds"] for k, v in rejects.items()})
 
 
@@ -1116,11 +1360,7 @@ def v2_single_phase(torch, card):
     from echoseal_torch.utils.channels import time_scale
     from echoseal_torch.utils.logging import Timer
 
-    rng = np.random.default_rng(SEED + 7)
-    host = (0.15 * np.sin(2 * np.pi * 700 * np.arange(20 * FS) / FS)
-            ).astype(np.float32)
-    stream = robust.RobustEmbedder(KEY, rng=rng).process(host)
-    starts = rng.choice(stream.size - T35, N_SINGLE, replace=False)
+    rng, stream, starts = v2_single_cuts()
     rv, ctor_s = _timed(lambda: robust.RobustVerifier(KEY), torch)
     check(rv.device.type == "cuda" and rv._list_size == 32
           and rv.tables["m_stack"].shape == (4, 2, 1215, 9720),
@@ -1140,8 +1380,8 @@ def v2_single_phase(torch, card):
         stages[r.stage] = stages.get(r.stage, 0) + 1
     launches = dict(build.LAUNCHES)
     split = _timer_totals(Timer)
-    check(launches.get("payload_llr", 0) >= N_SINGLE,
-          f"payload_llr launches on the v2 single-clip path: {launches}")
+    check(decode_launches(launches) >= N_SINGLE,
+          f"payload_decode launches on the v2 single-clip path: {launches}")
 
     cut = stream[starts[0]:starts[0] + T35]
     r44, s44 = _timed(
@@ -1174,7 +1414,7 @@ def v2_single_phase(torch, card):
                         "seconds": sts, "split": ts_split},
           "noise": {"authentic": False, "seconds": sn,
                     "split": _timer_totals(Timer)}})
-    return launches["payload_llr"], stream
+    return decode_launches(launches), stream
 
 
 def _drive_monitor(mon, stream, tail, torch):
@@ -1229,12 +1469,11 @@ def monitor_pool_phase(torch, card, v2_stream):
             "tail_seconds": tail_s,
             "stages": sorted({ev.result.stage for ev in own})}
     launches_mon = dict(build.LAUNCHES)
-    check(launches_mon.get("payload_llr", 0) >= 18,
-          f"payload_llr launches of the stream monitors: {launches_mon}")
+    check(decode_launches(launches_mon) >= 18,
+          f"payload_decode launches of the stream monitors: {launches_mon}")
 
     # ---- BatchStreamMonitor over 120 s in 1 s feeds -------------------------
-    host = (0.15 * np.sin(2 * np.pi * 700 * np.arange(120 * FS) / FS)
-            ).astype(np.float32)
+    host = tone_host(120 * FS)
     t0 = time.perf_counter()
     long_stream = robust.RobustEmbedder(KEY, rng=rng).embed(
         host, session_nonce=b"batchmon")
@@ -1255,8 +1494,8 @@ def monitor_pool_phase(torch, card, v2_stream):
           f"BatchStreamMonitor: {len(events)} windows, accept {accept}")
     check(all(ev.result.session_nonce == b"batchmon" for ev in events),
           "BatchStreamMonitor: an event names another session")
-    check(launches_bmon.get("payload_llr", 0) >= len(events),
-          f"payload_llr launches of the batch monitor: {launches_bmon}")
+    check(decode_launches(launches_bmon) >= len(events),
+          f"payload_decode launches of the batch monitor: {launches_bmon}")
     with_window = [f for f, i in zip(feeds, range(len(feeds))) if i >= 3
                    and i % 2 == 1]
     bmon_line = {"stream_s": 120, "windows": len(events), "accept": accept,
@@ -1275,8 +1514,7 @@ def monitor_pool_phase(torch, card, v2_stream):
     batches = []
     for key in keys:
         stream = robust.RobustEmbedder(key, rng=rng).process(
-            (0.15 * np.sin(2 * np.pi * 700 * np.arange(STREAM_S_V2 * FS) / FS)
-             ).astype(np.float32))
+            tone_host(STREAM_S_V2 * FS))
         starts = rng.integers(0, stream.size - T, N_POOL_CLIPS)
         clips = torch.zeros(N_POOL_CLIPS, TPAD_V2, device="cuda")
         clips[:, :T] = demod.slice_windows(
@@ -1303,16 +1541,16 @@ def monitor_pool_phase(torch, card, v2_stream):
     step("key0_rebuilt_evicts_key1", 0, 0, True, [2, 0])
     step("key2_on_key1_clips", 2, 1, False, [0, 2])
     launches_pool = dict(build.LAUNCHES)
-    check(launches_pool.get("payload_llr", 0) >= len(steps),
-          f"payload_llr launches of the pool: {launches_pool}")
+    check(decode_launches(launches_pool) >= len(steps),
+          f"payload_decode launches of the pool: {launches_pool}")
     emit({"phase": "monitors_pool", "card": card, "stream_monitor": mon_lines,
           "stream_monitor_launches": launches_mon,
           "batch_monitor": bmon_line,
           "pool": {"profile": "v2", "max_keys": 2, "keys": 3,
                    "clips_per_key": N_POOL_CLIPS, "steps": steps,
                    "launches": launches_pool}})
-    return (launches_mon["payload_llr"], launches_bmon["payload_llr"],
-            launches_pool["payload_llr"])
+    return (decode_launches(launches_mon), decode_launches(launches_bmon),
+            decode_launches(launches_pool))
 
 
 def device_pair_phase(torch, card, compat_stream, v2_stream):
@@ -1530,7 +1768,7 @@ def _verify_row(torch, verifier, clips: np.ndarray, nv: np.ndarray, *,
     audio_s = float(np.sum(nv)) / (fs_in or FS)
     line = {"n": int(v.size), "accept": float(v.mean()), "verify_s": s,
             "audio_s_per_s": audio_s / s,
-            "launches": build.LAUNCHES.get("payload_llr", 0),
+            "launches": decode_launches(build.LAUNCHES),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     if recover:
         log = verifier.recover_log
@@ -1583,8 +1821,7 @@ def impaired_setup(host_frames, v2_stream, st):
     # v2 tone host: 3.5 s cuts of the phase-7 stream
     starts = rng.integers(0, v2_stream.size - T35, B)
     tone = np.stack([v2_stream[s:s + T35] for s in starts])
-    host = (0.15 * np.sin(2 * np.pi * 700 * np.arange(STREAM_S_V2 * FS) / FS)
-            ).astype(np.float32)
+    host = tone_host(STREAM_S_V2 * FS)
     wm_pow = float(np.mean((v2_stream[:host.size] - host) ** 2))
     delta_db = 10.0 * np.log10(float(np.mean(host ** 2)) / wm_pow)
     # speech host, embedded block-wise as the live TX path does
@@ -1595,8 +1832,7 @@ def impaired_setup(host_frames, v2_stream, st):
     starts = rng.integers(0, sp_stream.size - T35, B)
     sp = np.stack([sp_stream[s:s + T35] for s in starts])
     # codec draws: 4 s cuts of a 6 s 700 Hz host, a new session per draw
-    host6 = (0.15 * np.sin(2 * np.pi * 700 * np.arange(CODEC_T + 2 * FS)
-                           / FS)).astype(np.float32)
+    host6 = tone_host(CODEC_T + 2 * FS)
     draws = []
     for k in range(CODEC_DRAWS):
         tx = RobustEmbedder(KEY, rng=np.random.default_rng(SEED + 100 + k))
@@ -1706,7 +1942,7 @@ def impaired_tone_phase(torch, card, rv, st, wm_row, jax_rows):
         launches += line["launches"]
         if row.startswith(("mp3", "reverb")):
             keep[row] = (clips[:N_DEVICE_PAIR].copy(), nv[:N_DEVICE_PAIR])
-    check(launches > 0, "payload_llr never launched on the v2 tone rows")
+    check(launches > 0, "payload_decode never launched on the v2 tone rows")
     return launches, keep
 
 
@@ -1756,7 +1992,7 @@ def codec_phase(torch, card, rv, st, jax_rows):
             wrong.session_nonce = None
             wrong_acc.append(bool(wrong.verify(y, fs_in)))
         wrong_s = time.perf_counter() - t0
-        n_launch = build.LAUNCHES.get("payload_llr", 0)
+        n_launch = decode_launches(build.LAUNCHES)
         launches += n_launch
         batch[fs_in].append((name, out, lengths))
         rows[name] = {"fs_in": fs_in, "n": len(acc), "accepted": sum(acc),
@@ -1784,7 +2020,7 @@ def codec_phase(torch, card, rv, st, jax_rows):
     emit({"phase": "codec_rows", "card": card, "draws": CODEC_DRAWS,
           "clip_s": CODEC_T / FS, "cpu_count": os.cpu_count(),
           "rows": rows, "batch": batch_lines})
-    check(launches > 0, "payload_llr never launched on the codec rows")
+    check(launches > 0, "payload_decode never launched on the codec rows")
     return launches
 
 
@@ -1874,6 +2110,7 @@ def diagnostics_phase(torch, card):
         _compare_reports(g, c, lambda p: 0.01 if compat and p.split(".")[1]
                          in ("demod", "header", "llr") else 1e-3)
         reports[argv[1]] = g
+    # stage_compare times the LLR stage alone: the payload_llr kernel
     launches = build.LAUNCHES.get("payload_llr", 0)
     check(launches >= 2, f"stage_compare's LLR launches: {launches}")
     emit({"phase": "diagnostics", "card": card, "frozen_check": audit,
@@ -1885,7 +2122,8 @@ def diagnostics_phase(torch, card):
 
 
 def impaired_phases(torch, card, bv, host_frames, rv, cpu, v2_stream):
-    """Phases 20-23; returns {path: kernel launches}.
+    """Phases 20-23; returns ({path: payload_decode launches},
+    {"diagnostics": payload_llr launches}).
 
     The staging jobs are queued first; the diagnostics (23b), which need
     none, run while the workers start.
@@ -1901,7 +2139,8 @@ def impaired_phases(torch, card, bv, host_frames, rv, cpu, v2_stream):
         emit({"phase": "impaired_setup", "host_setup_s": bases["setup_s"],
               "cpu_count": os.cpu_count(), "codec_draws": CODEC_DRAWS,
               "wm_row": wm_row, "delta_db": bases["delta_db"]})
-        by_path = {"diagnostics": diagnostics_phase(torch, card)}
+        llr_by_path = {"diagnostics": diagnostics_phase(torch, card)}
+        by_path = {}
         compat, speech, speech_keep = clean_rows(torch, card, bv, rv, bases,
                                                  jax_rows)
         by_path["impaired_compat"] = compat + impaired_compat_phase(
@@ -1916,10 +2155,10 @@ def impaired_phases(torch, card, bv, host_frames, rv, cpu, v2_stream):
         pool.shutdown(wait=True, cancel_futures=True)
         st.close()
     for path in ("impaired_compat", "impaired_v2_speech"):
-        check(by_path[path] > 0, f"payload_llr never launched on {path}")
+        check(by_path[path] > 0, f"payload_decode never launched on {path}")
     pair_phase(torch, card, rv, cpu, keep)
     emit({"phase": "impaired_total", "seconds": time.perf_counter() - t0})
-    return by_path
+    return by_path, llr_by_path
 
 
 # ======================================================================
@@ -2011,11 +2250,11 @@ def native_gui_phase(torch, card):
             rc = rx_app.main(["--key", KEY.hex(), "--audio", dst])
         check(rc == 0 and out.getvalue() == "authentic\n",
               f"rx_app on the tx_app --native WAV: rc {rc}, {out.getvalue()}")
-        native_launches = build.LAUNCHES.get("payload_llr", 0)
+        native_launches = decode_launches(build.LAUNCHES)
 
         build.LAUNCHES.clear()
         label, gui_s = _gui_verify(dst)
-        gui_launches = build.LAUNCHES.get("payload_llr", 0)
+        gui_launches = decode_launches(build.LAUNCHES)
     check(label == "AUTHENTIC", f"RxGUI on the card: {label!r}")
     emit({"phase": "native_tx_gui", "card": card,
           "host": "the card machine's host CPU",
@@ -2093,7 +2332,7 @@ def sharded_phase(torch, card, bv, host_frames, starts, rv, v2_stream):
             build.LAUNCHES.clear()
             out = run(x, nv)
             torch.cuda.synchronize()
-            by_path[f"sharded_{tier}"] = build.LAUNCHES.get("payload_llr", 0)
+            by_path[f"sharded_{tier}"] = decode_launches(build.LAUNCHES)
             whole = verifier.run_device(x, nv)
             check(set(out) == set(whole) | {"n_crc_ok"},
                   f"{tier} sharded keys {sorted(out)}")
@@ -2305,7 +2544,7 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
             v = rv.verify_batch(clips, nv, details=details)
             dt = time.perf_counter() - t0
             if mode == "serving":
-                launches_ladder += build.LAUNCHES["payload_llr"]
+                launches_ladder += decode_launches(build.LAUNCHES)
         runs[mode].append({
             "accept": float(v.mean()), "seconds": dt,
             "rescued_by_scl": sum(d.stage == "scl" for d in details.values()),
@@ -2351,7 +2590,7 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
         t0 = time.perf_counter()
         rec = rv.verify_batch_recover(scaled, nvs)
         rec_s = time.perf_counter() - t0
-        launches_rec = build.LAUNCHES["payload_llr"]
+        launches_rec = decode_launches(build.LAUNCHES)
     log = rv.recover_log
     del scaled
     rec_accept = float(rec.mean())
@@ -2389,7 +2628,7 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
                 build.LAUNCHES.clear()
                 r, dt = _timed(lambda: det.verify_detailed(noise, FS), torch)
                 if mode == "serving":
-                    launches_single += build.LAUNCHES["payload_llr"]
+                    launches_single += decode_launches(build.LAUNCHES)
             scl_s = _timer_totals(Timer).get(span, {}).get("total_s", 0.0)
             check(not r.authentic, f"{mode} {tier} noise clip accepted: {r}")
             check(scl_s > 0, f"{mode} {tier} noise clip ran no SCL pass")
@@ -2399,7 +2638,7 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
             build.LAUNCHES.clear()
             r, dt = _timed(lambda: det.verify_detailed(
                 stream[s0:s0 + T35], FS), torch)
-            launches_single += build.LAUNCHES["payload_llr"]
+            launches_single += decode_launches(build.LAUNCHES)
         check(r.authentic, f"serving {tier} cut at {s0} rejected: {r}")
         out["cut"] = {"authentic": True, "stage": r.stage, "seconds": dt}
         single[tier] = out
@@ -2444,7 +2683,9 @@ def main() -> None:
 
     # ---- 3. kernels vs their plain versions --------------------------------
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    max_err, entry = kernel_phase(torch, llr, flush)
+    busy, mhz = busy_cycles(torch)
+    llr_err, llr_entry = kernel_phase(torch, llr, flush, busy, mhz)
+    decode_err, decode_entry = decode_kernel_phase(torch, llr, flush, busy)
     del flush
 
     by_path = {}
@@ -2460,8 +2701,9 @@ def main() -> None:
     (by_path["stream_monitors"], by_path["batch_monitor"],
      by_path["verifier_pool"]) = monitor_pool_phase(torch, card, v2_stream)
     device_pair_phase(torch, card, compat_stream, v2_stream)
-    by_path.update(impaired_phases(torch, card, bv, host_frames, rv, cpu,
-                                   stream))
+    impaired, llr_by_path = impaired_phases(torch, card, bv, host_frames,
+                                            rv, cpu, stream)
+    by_path.update(impaired)
     by_path.update(native_gui_phase(torch, card))
     by_path.update(sharded_phase(torch, card, bv, host_frames, starts, rv,
                                  stream))
@@ -2472,11 +2714,13 @@ def main() -> None:
     del rv, cpu, ladder_clips, recover_batch
     for path in ("native_tx", "gui_rx", "sharded_compat", "sharded_v2",
                  "serving_ladder", "serving_recover", "serving_single"):
-        check(by_path[path] > 0, f"payload_llr never launched on {path}")
-    entry["launches"] = sum(by_path.values())
-    entry["launches_by_path"] = by_path
-    entry["max_abs_err"] = max_err
-    print(json.dumps({"kernels": [entry]}), flush=True)
+        check(by_path[path] > 0, f"payload_decode never launched on {path}")
+    for entry, paths, err in ((decode_entry, by_path, decode_err),
+                              (llr_entry, llr_by_path, llr_err)):
+        entry["launches"] = sum(paths.values())
+        entry["launches_by_path"] = paths
+        entry["max_abs_err"] = err
+    print(json.dumps({"kernels": [decode_entry, llr_entry]}), flush=True)
 
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -15,8 +15,9 @@ is two device stages plus host-side crypto, run as *staged batched passes*:
       +-WIDE, band-gated), round-robin budget, PN keystream fan-out
       (single AES pass).
   stage D (device)
-      despread + LLR normalisation (the ``payload_llr`` kernel on the
-      card) + hard-decision polar fast path for ALL candidates at once.
+      PN gather + despread + LLR normalisation + hard-decision polar fast
+      path with its CRC for ALL candidates at once (the ``payload_decode``
+      kernel on the card).
   stage L (device, only if needed)
       SCL list decode over the best candidates, with the retry ladder
       (sign flip, alternate PN convention) as further passes.
@@ -59,8 +60,8 @@ from echoseal_torch.core.params import (
 )
 from echoseal_torch.core.sequences import bits_to_bpsk, mls63
 from echoseal_torch.ops import demod, filters
-from echoseal_torch.ops.llr import payload_llr
-from echoseal_torch.ops.polar import hard_decode_batch, pack_info_bits, polar_spec
+from echoseal_torch.ops.llr import payload_decode
+from echoseal_torch.ops.polar import pack_info_bits, polar_spec
 from echoseal_torch.ops.resample import resample_to  # noqa: F401  (re-export)
 from echoseal_torch.ops.scl import scl_decode
 from echoseal_torch.utils.logging import Timer, get_logger
@@ -173,11 +174,19 @@ def _scan_stage(x: torch.Tensor, n_valid: int,
 
 
 @torch.no_grad()
-def _llr_stage(chips: torch.Tensor, pn_sy: torch.Tensor, spec=None):
-    """(N, 1215) chips + (N, 1024) PN symbols -> LLRs + hard-decode."""
-    llr = payload_llr(chips, pn_sy)
-    info, crc_ok = hard_decode_batch(llr, spec or polar_spec())
-    return llr, info, crc_ok
+def _llr_stage(chips: torch.Tensor, pn: torch.Tensor, spec=None, *,
+               pn_row: torch.Tensor | None = None, want_llr: bool = True):
+    """(N, 1215) chips -> (LLRs or None, info bits, crc_ok).
+
+    ``pn`` is an (M, 1024) {0,1} bit table with ``pn_row`` (N,) the row of
+    each candidate, or without ``pn_row`` (N, 1024) +-1 PN symbols, one
+    row per candidate.  One ``payload_decode`` launch on the card.
+    """
+    if pn_row is None:
+        pn, pn_row = (pn > 0).to(torch.uint8), torch.arange(
+            pn.shape[0], device=pn.device)
+    return payload_decode(chips, pn, pn_row, spec or polar_spec(),
+                          want_llr=want_llr)
 
 
 @dataclass
@@ -417,11 +426,10 @@ class WatermarkDetector:
             uniq, inv = np.unique(ctrs, return_inverse=True)
             inv_dev = torch.as_tensor(inv, device=dev)
 
-            def pn_symbols(bits: np.ndarray) -> torch.Tensor:
-                up = torch.as_tensor(np.ascontiguousarray(bits), device=dev)
-                return 2.0 * up[inv_dev].to(torch.float32) - 1.0
+            def pn_upload(bits: np.ndarray) -> torch.Tensor:
+                return torch.as_tensor(np.ascontiguousarray(bits), device=dev)
 
-            pn_sy = pn_symbols(
+            pn_up = pn_upload(
                 self.sec.pn_bits_batch(uniq, FRAME_LEN)[:, PRE_L + HDR_L:])
 
         def hard_pass(info, crc_ok, stage: str):
@@ -436,7 +444,8 @@ class WatermarkDetector:
 
         # ------------------- hard-decision fast path ----------------------
         with Timer("rx.llr_stage"):
-            _, info, crc_ok = _llr_stage(chips, pn_sy, self._spec)
+            _, info, crc_ok = _llr_stage(chips, pn_up, self._spec,
+                                         pn_row=inv_dev, want_llr=False)
             n_hard = int(crc_ok.sum())
         _LOG.event("llr", n_cand=n_cand, n_hard_crc=n_hard)
         res = hard_pass(info, crc_ok, "hard")
@@ -446,7 +455,8 @@ class WatermarkDetector:
         # --------------------------- SCL pass -----------------------------
         # free extra hard pass over the raw chips (different rounding than
         # the refined pass; occasionally rescues a clean frame on its own)
-        llr, info_s, crc_ok_s = _llr_stage(chips_soft, pn_sy, self._spec)
+        llr, info_s, crc_ok_s = _llr_stage(chips_soft, pn_up, self._spec,
+                                           pn_row=inv_dev)
         res = hard_pass(info_s, crc_ok_s, "hard")
         if res is not None:
             return res
@@ -486,15 +496,17 @@ class WatermarkDetector:
         if res is not None:
             return res
         # variant 1: PN restarted at the payload
-        pn_alt_sy = pn_symbols(self.sec.pn_bits_batch(uniq, N_DEFAULT))
-        _, info_a, crc_ok_a = _llr_stage(chips, pn_alt_sy, self._spec)
+        pn_alt = pn_upload(self.sec.pn_bits_batch(uniq, N_DEFAULT))
+        _, info_a, crc_ok_a = _llr_stage(chips, pn_alt, self._spec,
+                                         pn_row=inv_dev, want_llr=False)
         res = hard_pass(info_a, crc_ok_a, "hard-alt")
         if res is not None:
             return res
         # the alternate convention goes through the FULL polar decoder
         # including the sign flip, not just the hard path: the same SCL
         # ladder over the alt LLRs of the RAW soft chips
-        llr_a, _, _ = _llr_stage(chips_soft, pn_alt_sy, self._spec)
+        llr_a, _, _ = _llr_stage(chips_soft, pn_alt, self._spec,
+                                 pn_row=inv_dev)
         res = scl_pass(llr_a, "scl-alt")
         if res is not None:
             return res

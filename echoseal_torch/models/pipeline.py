@@ -57,8 +57,8 @@ from echoseal_torch.core.profiles import ROBUST, WaveformProfile, profile_spec
 from echoseal_torch.core.sequences import bits_to_bpsk, mls63
 from echoseal_torch.models import robust
 from echoseal_torch.ops import demod
-from echoseal_torch.ops.llr import payload_llr
-from echoseal_torch.ops.polar import PolarSpec, hard_decode_batch, polar_spec
+from echoseal_torch.ops.llr import payload_decode
+from echoseal_torch.ops.polar import PolarSpec, polar_spec
 from echoseal_torch.ops.resample import DeviceResampler
 from echoseal_torch.ops.scl import scl_decode_serving
 
@@ -113,8 +113,9 @@ def _batch_verify_stage(x: torch.Tensor, n_valid: torch.Tensor,
     ``tables`` holds the key's device tables (``convert.TABLE_DTYPES``).
     ``marks``, when a list, receives a ``(name, cuda.Event)`` as each
     stage's work is enqueued -- "sync_xcorr", "sync_nms", "demod_refine",
-    "header_counter", "llr", "hard_decode" -- for per-stage device times
-    (CUDA only).
+    "header_counter", "llr" (the fused ``payload_decode``: PN gather, LLR,
+    hard decode, CRC), "hard_decode" (row gating and each clip's first
+    CRC-passing row) -- for per-stage device times (CUDA only).
     """
     idx, val = _sync_stage(x, n_valid, tables["templates"], peaks, FRAME_LEN,
                            marks=marks)
@@ -204,13 +205,13 @@ def _decode_stage(chips, idx, val, tables, marks=None, *,
     ctr, any_match = _resolve_counters(
         hdr_ok, lo16, ctr_est.reshape(lattice), hop_table, band_ids,
         pn_table.shape[0])
-    pn_sy = 2.0 * pn_table[ctr.long()].to(torch.float32) - 1.0  # (..., 1024)
     _mark(marks, "header_counter")
 
-    llr = payload_llr(chips, pn_sy)
-    del pn_sy
+    # PN gather, LLR, hard decode and CRC in one kernel; the LLRs only
+    # where the soft rows read them
+    llr, info, crc_ok = payload_decode(chips, pn_table, ctr, spec,
+                                       want_llr=bool(soft_rows))
     _mark(marks, "llr")
-    info, crc_ok = hard_decode_batch(llr, spec)
     row_ok = torch.isfinite(val).reshape(lattice) & any_match
     crc_ok = crc_ok & row_ok
     sel_ok, sel_ctr, blob, host_packed = _select_first(crc_ok, info, ctr)
@@ -245,12 +246,6 @@ def _decode_stage(chips, idx, val, tables, marks=None, *,
 
 
 @torch.no_grad()
-def _llr_hard_stage(chips: torch.Tensor, pn_sy: torch.Tensor, spec: PolarSpec):
-    """(N, 1215) chips + (N, 1024) PN symbols -> hard-decision decode."""
-    return hard_decode_batch(payload_llr(chips, pn_sy), spec)
-
-
-@torch.no_grad()
 def _ext_ctr_stage(chips_all, ii, bb, pp, pn_packed, spec: PolarSpec):
     """Extended-counter decode on the device: gather + despread + CRC.
 
@@ -260,10 +255,11 @@ def _ext_ctr_stage(chips_all, ii, bb, pp, pn_packed, spec: PolarSpec):
     uint8 row: crc_ok | packed info bits.
     """
     chips = chips_all[ii, bb, pp].to(torch.float32)
+    n = pn_packed.shape[0]
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=chips.device)
-    bits = (pn_packed[:, :, None] >> shifts) & 1
-    pn_sy = 2.0 * bits.reshape(pn_packed.shape[0], -1).to(torch.float32) - 1.0
-    info, crc_ok = _llr_hard_stage(chips, pn_sy, spec)
+    bits = ((pn_packed[:, :, None] >> shifts) & 1).reshape(n, -1)
+    _, info, crc_ok = payload_decode(
+        chips, bits, torch.arange(n, device=chips.device), spec)
     return torch.cat([crc_ok.to(torch.uint8)[:, None], _pack_bits(info)], dim=1)
 
 

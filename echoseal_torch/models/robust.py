@@ -47,8 +47,8 @@ from echoseal_torch.core.sequences import bits_to_bpsk, header_bits, mls63
 from echoseal_torch.models.detector import VerifyResult
 from echoseal_torch.models.embedder import db_to_lin
 from echoseal_torch.ops import demod, filters
-from echoseal_torch.ops.llr import payload_llr
-from echoseal_torch.ops.polar import encode_np, hard_decode_batch, pack_info_bits
+from echoseal_torch.ops.llr import payload_decode
+from echoseal_torch.ops.polar import encode_np, pack_info_bits
 from echoseal_torch.ops.resample import resample_to
 from echoseal_torch.ops.scl import scl_decode
 from echoseal_torch.utils.logging import Timer, get_logger
@@ -559,12 +559,12 @@ class RobustVerifier:
         chips = dev_out["chips"][b_, p_, k_]
         uniq, inv = np.unique(ctrs, return_inverse=True)
         pn = self.sec.pn_bits_batch(uniq, FRAME_LEN)[:, PRE_L + HDR_L:]
-        pn_sy = 2.0 * torch.as_tensor(np.ascontiguousarray(pn), device=dev)[
-            torch.as_tensor(inv, device=dev)].to(torch.float32) - 1.0
+        pn_up = torch.as_tensor(np.ascontiguousarray(pn), device=dev)
 
         with Timer("rx.v2.llr_hard"):
-            llr = payload_llr(chips, pn_sy)
-            info, crc_ok = hard_decode_batch(llr, self._spec)
+            llr, info, crc_ok = payload_decode(
+                chips, pn_up, torch.as_tensor(inv, device=dev), self._spec,
+                want_llr=True)
             hits = torch.nonzero(crc_ok)[:, 0]
             bits = info[hits].to(torch.uint8).cpu().numpy()
         for i, row in zip(hits.tolist(), bits):

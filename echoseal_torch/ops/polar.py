@@ -11,7 +11,8 @@ The polar transform (encode butterfly) is its own inverse over GF(2); the
 hard-decision "fast path" of the list decoder is therefore: threshold the
 LLRs, run the same butterfly, read the data positions, check CRC
 (fastpolar.py:261-276) -- all trivially batched.  Host helpers work on
-numpy arrays, the batched decoder on torch tensors of any device.
+numpy arrays, the batched decoder on torch tensors of any device; a
+spec's tables go to each device once (``device_tables``).
 """
 from __future__ import annotations
 
@@ -49,12 +50,14 @@ def crc8_matrix(n_bits: int) -> np.ndarray:
 
 
 def crc8_check_batch(info_bits: torch.Tensor, crc_bits: torch.Tensor,
-                     crc_mat: np.ndarray) -> torch.Tensor:
+                     crc_mat: np.ndarray | torch.Tensor) -> torch.Tensor:
     """Vectorised CRC check: (..., info) x (..., 8) -> (...,) bool.
 
     The GF(2) product runs in float32 (CUDA has no integer matmul); every
     partial sum is an integer of at most ``info`` (440), which float32
-    holds exactly, so the mod-2 result is exact.
+    holds exactly, so the mod-2 result is exact.  ``crc_mat`` given as
+    ``device_tables(spec, device).crc_mat`` is used as it is; a numpy
+    matrix is uploaded on every call.
     """
     mat = torch.as_tensor(crc_mat, dtype=torch.float32,
                           device=info_bits.device)
@@ -77,6 +80,39 @@ class PolarSpec:
     @property
     def info_len(self) -> int:
         return self.K - self.crc_size
+
+
+@dataclass(frozen=True)
+class SpecTables:
+    """A spec's tables on one device (``device_tables``)."""
+
+    data_pos: torch.Tensor   # (K,) int64
+    crc_mat: torch.Tensor    # (info_len, 8) float32
+    # payload_decode's: the data index of each code position (info bits
+    # first, then the CRC bits; -1 = frozen), and the CRC-8 of each info
+    # bit alone as one byte, bit c = column c of ``crc_mat``
+    role: torch.Tensor       # (N,) int16
+    crc_cols: torch.Tensor   # (info_len,) uint8
+
+
+@lru_cache(maxsize=32)
+def device_tables(spec: PolarSpec, device: torch.device) -> SpecTables:
+    """``spec``'s tables on ``device``, uploaded on the first call only.
+
+    The cache keys on the spec object and the device, so a later call
+    returns the same tensors and copies nothing to the device.
+    """
+    role = np.full(spec.N, -1, dtype=np.int16)
+    role[spec.data_pos] = np.arange(spec.K)
+    cols = spec.crc_mat.astype(np.uint8) << np.arange(8, dtype=np.uint8)
+    return SpecTables(
+        data_pos=torch.as_tensor(spec.data_pos, dtype=torch.int64,
+                                 device=device),
+        crc_mat=torch.as_tensor(spec.crc_mat, dtype=torch.float32,
+                                device=device),
+        role=torch.as_tensor(role, device=device),
+        crc_cols=torch.as_tensor(np.bitwise_or.reduce(cols, axis=1),
+                                 device=device))
 
 
 @lru_cache(maxsize=8)
@@ -142,13 +178,12 @@ def encode_batch(info_bits: torch.Tensor, spec: PolarSpec) -> torch.Tensor:
     ``crc8_check_batch`` (exact: every sum is an integer of at most 440).
     """
     info = info_bits.to(torch.int32)
-    mat = torch.as_tensor(spec.crc_mat, dtype=torch.float32,
-                          device=info.device)
-    crc = torch.remainder(info.to(torch.float32) @ mat, 2.0).to(torch.int32)
+    tabs = device_tables(spec, info.device)
+    crc = torch.remainder(info.to(torch.float32) @ tabs.crc_mat,
+                          2.0).to(torch.int32)
     u = torch.zeros(info.shape[:-1] + (spec.N,), dtype=torch.int32,
                     device=info.device)
-    u[..., torch.as_tensor(spec.data_pos, device=info.device)] = torch.cat(
-        [info, crc], dim=-1)
+    u[..., tabs.data_pos] = torch.cat([info, crc], dim=-1)
     return polar_transform(u)
 
 
@@ -158,12 +193,13 @@ def hard_decode_batch(llr: torch.Tensor, spec: PolarSpec):
 
     Returns (info_bits (..., info_len) int32, crc_ok (...,) bool).
     """
+    tabs = device_tables(spec, llr.device)
     hard = (llr > 0.0).to(torch.int32)
     u_hat = polar_transform(hard)
-    data = u_hat[..., torch.as_tensor(spec.data_pos, device=llr.device)]
+    data = u_hat[..., tabs.data_pos]
     info = data[..., : spec.info_len]
     crc = data[..., spec.info_len:]
-    ok = crc8_check_batch(info, crc, spec.crc_mat)
+    ok = crc8_check_batch(info, crc, tabs.crc_mat)
     # the all-zero word is a valid codeword with CRC 0, so silent/garbage
     # windows would "pass" -- real payloads are AEAD blobs, never all-zero
     ok = ok & torch.any(info != 0, dim=-1)

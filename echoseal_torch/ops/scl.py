@@ -51,7 +51,11 @@ import numpy as np
 import torch
 
 from echoseal_torch.core.device import resolve_device
-from echoseal_torch.ops.polar import PolarSpec, crc8_check_batch
+from echoseal_torch.ops.polar import (
+    PolarSpec,
+    crc8_check_batch,
+    device_tables,
+)
 
 BIG_METRIC = 1e30
 IMPLS = ("serving", "unrolled", "blocked", "lazy", "dense")
@@ -364,7 +368,8 @@ def _scl_decode(llr: torch.Tensor, spec: PolarSpec, list_size: int, *,
 
     data = dec.dec.to(torch.int32)
     info = data[..., :spec.info_len]
-    crc_ok = crc8_check_batch(info, data[..., spec.info_len:], spec.crc_mat)
+    crc_ok = crc8_check_batch(info, data[..., spec.info_len:],
+                              device_tables(spec, llr.device).crc_mat)
     metric = dec.metric
     order = torch.argsort(metric, dim=-1, stable=True)
     rows = dec.rows
