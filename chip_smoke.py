@@ -22,7 +22,17 @@ line):
    on inputs with CRC-passing rows: info bits and ``crc_ok`` exact, LLRs
    within rtol = atol = KERNEL_TOL, its time beside ``payload_llr``'s, a one-element
    op's (the launch floor) and, on the host clock, the chain of torch
-   ops and ``payload_llr`` it replaces;
+   ops and ``payload_llr`` it replaces; (c) ``scl_decode``, the exact SCL
+   list decoder, against the eager walk it replaces on the card
+   (``scl._scl_decode_plain``) at phase 10's 128 rows at L = 256, 32 rows
+   at L = 256 and L = 32 (the single-clip tiers) and the v2 ladder's rungs
+   (1024 and 321 rows at L = 8, 107 at L = 32), noisy rows with a
+   noiseless and a zero-LLR one: per row the same CRC-passing payloads and
+   first passing path, sorted metrics within rtol = atol = 1e-4, lists
+   path for path except beside a near-equal metric (ties, counted); the
+   kernel's and the walk's times, the bound (bytes, fp32 and exp/log1p
+   operations) and the dependency floor (forks x one measured fork
+   round);
 4. compat main path at full width: a 4096-frame stream from the port's
    host TX (every random byte drawn from ``SEED``), B = 1024 clips of 3 s
    at 48 kHz cut at frame-aligned random starts,
@@ -170,11 +180,19 @@ verify seconds, audio seconds per second, the SCL rungs' seconds, kernel
 launches, peak memory, the workers' summed staging seconds and the
 seconds the row waited for them.
 
+Every exact list decode on the card is one launch of ``scl_decode``; the
+runs of phases 7, 9, 10, 14, 16, 17 and 20-22 add theirs to a path
+(``SCL_BY_PATH``), and the ladder (9), SCL-256 (10), recovery (14), the
+rejected compat clips (16), the v2 noise clip's SCL pass (17) and the
+failing impaired v2 rows (20-21) must each have launched it; phase 26's
+serving legs must launch it never, its exact legs count theirs.
+
 Before the last line it prints ``{"kernels": [...]}``: each kernel at the
-v2 path's shape, with its launches counted over every main path (each
-path driven with the counts set to 0 just before it): ``payload_decode``
-on every main path, which launches ``payload_llr`` no more, and
-``payload_llr`` in phase 23's diagnostics.  The last line is
+v2 path's shape (``scl_decode`` at the ladder's first rung), with its
+launches counted over every main path (each path driven with the counts
+set to 0 just before it): ``payload_decode`` on every main path, which
+launches ``payload_llr`` no more, ``payload_llr`` in phase 23's
+diagnostics and ``scl_decode`` by path.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 from __future__ import annotations
@@ -233,6 +251,20 @@ MIXED_GATE = 0.9
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# exp and log1p: 16 SFU results per SM per clock, 132 SMs, 1.98 GHz boost
+# (H100 SXM, the Hopper architecture white paper)
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# phase 3c's shapes (spec, rows, L, sigma): phase 10's SCL-256, the compat
+# single clip's batch, the v2 single clip's rows, and the v2 ladder's rungs
+# (1024 and 321 rows at L = 8, 107 at L = 32: phase 9's rungs)
+SCL_SHAPES = (("compat", 128, 256, 0.3), ("compat", 32, 256, 0.35),
+              ("v2", 32, 32, 0.35), ("v2", 1024, 8, 0.35),
+              ("v2", 321, 8, 0.35), ("v2", 107, 32, 0.35))
+SCL_TOL = 1e-4
+# paths whose run must have launched scl_decode
+SCL_PATHS = ("scl_ladder", "scl256", "timescale_recover",
+             "compat_single_rejected", "v2_single_noise", "impaired_v2_tone",
+             "impaired_v2_speech")
 BUSY_US = 200.0               # phase 3: card kept busy this long per launch
 N_SUB = 128                   # reverb and speech time-scale sub-batches
 N_L3 = 32                     # speech host through the real Layer III codec
@@ -272,6 +304,17 @@ def decode_launches(launches) -> int:
     check(launches.get("payload_llr", 0) == 0,
           f"payload_llr launched on a main path: {dict(launches)}")
     return launches.get("payload_decode", 0)
+
+
+# path -> scl_decode launches of its runs (each run counted from 0)
+SCL_BY_PATH: dict[str, int] = {}
+
+
+def scl_launches(path: str, launches) -> int:
+    """Add one run's scl_decode launches (its counts from 0) to ``path``."""
+    n = launches.get("scl_decode", 0)
+    SCL_BY_PATH[path] = SCL_BY_PATH.get(path, 0) + n
+    return n
 
 
 def busy_cycles(torch, us: float = BUSY_US) -> tuple[int, float]:
@@ -585,6 +628,135 @@ def decode_kernel_phase(torch, llr, flush, busy):
     return max_err, entry
 
 
+def _scl_work(scl, spec, rows: int, L: int) -> dict:
+    """One exact decode's work, counted from its node schedule: fp32
+    operations (each exp and log1p counted as one), the exp and log1p among
+    them, and the bytes in (the LLRs) and out (info bits, crc_ok,
+    metrics).  Per element: f 10 fp32 + 4 transcendental, g 1, a softplus
+    of a rate-0 node 5 + 2, a leaf penalty pair 5 + 2; a fork adds two
+    candidates; the rank counts and partial sums are integer work."""
+    ops = scl.node_schedule(spec)
+    code, width = ops & 15, spec.N >> ((ops >> 4) & 15)
+    half = width // 2
+    elems = {c: int(np.sum(np.where(code == c, w, 0)))
+             for c, w in ((scl.OP_F, half), (scl.OP_G, half),
+                          (scl.OP_RATE0, width), (scl.OP_LEAF, 1),
+                          (scl.OP_REP, width))}
+    forks = int(np.isin(code, (scl.OP_LEAF, scl.OP_REP)).sum())
+    transc = 4 * elems[scl.OP_F] + 2 * (elems[scl.OP_RATE0]
+                                        + elems[scl.OP_LEAF]
+                                        + elems[scl.OP_REP])
+    fp32 = (10 * elems[scl.OP_F] + elems[scl.OP_G]
+            + 5 * (elems[scl.OP_RATE0] + elems[scl.OP_LEAF]
+                   + elems[scl.OP_REP]) + 2 * forks + transc)
+    return {"fp32": rows * L * fp32, "transc": rows * L * transc,
+            "bytes": rows * (4 * spec.N + L * (4 * spec.info_len + 5)),
+            "forks": forks}
+
+
+def _fork_round_ms(torch, scl, spec, L: int, busy: int,
+                   k: int = 512) -> float:
+    """One fork round of the kernel at list size L: a row decoded along a
+    schedule of the f chain to one leaf and then k leaf forks, less the
+    same schedule with no forks, over k."""
+    n = spec.N.bit_length() - 1
+    x = torch.zeros(1, spec.N, device="cuda")
+    head = [scl._op(scl.OP_F, lv, 0) for lv in range(n)]
+    t = {}
+    for m in (0, k):
+        ops = torch.tensor(head + [scl._op(scl.OP_LEAF, n, 0)] * m,
+                           dtype=torch.int32, device="cuda")
+        t[m] = cuda_ms(lambda: scl.scl_decode_kernel(x, spec, L, ops=ops),
+                       torch, n=10, busy=busy)
+    return (t[k] - t[0]) / k
+
+
+def scl_kernel_phase(torch, flush, busy):
+    """Phase 3c: the SCL kernel against its plain version (the eager walk)
+    at every path's shape (``SCL_SHAPES``).
+
+    Rows of random payloads through AWGN at the shape's sigma, the last
+    two replaced by a noiseless codeword and an all-zero row (every fork a
+    tie).  The contract (``scl.list_agreement``): per row the same
+    CRC-passing payloads and first passing path, sorted metrics within
+    rtol = atol = SCL_TOL, lists path for path except beside a near-equal
+    metric (``ties``, counted).  Device times in turns with the busy
+    harness (the kernel, ``ms``; the walk, ``plain_ms``, a chain of ~10**4
+    launches).  ``bound_ms``, the larger of the bytes over HBM, the fp32
+    operations over the fp32 peak and the exp/log1p over the SFU rate
+    (``_scl_work``); ``floor_ms``, the dependency chain: the schedule's
+    forks times one fork round at this L (``_fork_round_ms``), which a
+    row's block cannot beat however the rows spread.  Returns (the largest
+    metric difference, the ladder's first-rung ``kernels`` entry).
+    """
+    from echoseal_torch.core.profiles import ROBUST, profile_spec
+    from echoseal_torch.ops import polar, scl
+
+    specs = {"compat": polar.polar_spec(), "v2": profile_spec(ROBUST)}
+    rng = np.random.default_rng(SEED + 13)
+    fork_ms, entry, worst = {}, None, 0.0
+    for name, rows, L, sigma in SCL_SHAPES:
+        spec = specs[name]
+        _, llr_np = _coded_rows(spec, rows, sigma, rng)
+        llr_np[-2] = np.clip(_coded_rows(spec, 1, 1e-3, rng)[1][0], -16, 16)
+        llr_np[-1] = 0.0
+        x = torch.from_numpy(llr_np).cuda()
+        got = scl.scl_decode_kernel(x, spec, L)
+        want = scl._scl_decode_plain(x, spec, L)
+        torch.cuda.synchronize()
+        agree = scl.list_agreement(got, want, SCL_TOL)
+        check(agree["holds"] and bool(got["crc_ok"][-2, 0]),
+              f"scl_decode {name} at {rows} rows, L = {L}: {agree}, "
+              f"noiseless row passes {bool(got['crc_ok'][-2, 0])}")
+        worst = max(worst, agree["max_metric_err"])
+        del got, want
+        if L not in fork_ms:
+            fork_ms[L] = _fork_round_ms(torch, scl, spec, L, busy)
+
+        def kernel():
+            scl.scl_decode_kernel(x, spec, L)
+
+        def plain():
+            scl._scl_decode_plain(x, spec, L)
+
+        turns = {"ms": [], "plain_ms": []}
+        for key, fn, n in (("ms", kernel, 10), ("plain_ms", plain, 2),
+                           ("plain_ms", plain, 2), ("ms", kernel, 10)):
+            turns[key].append(cuda_ms(fn, torch, n=n, flush=flush,
+                                      busy=busy))
+        work = _scl_work(scl, spec, rows, L)
+        t = {"bytes": work["bytes"] / HBM_BYTES_PER_S * 1e3,
+             "fp32": work["fp32"] / FP32_FLOP_PER_S * 1e3,
+             "sfu": work["transc"] / SFU_OPS_PER_S * 1e3}
+        line = {"phase": "kernel_check", "name": "scl_decode", "spec": name,
+                "rows": rows, "L": L, "sigma": sigma, **agree,
+                "ms": statistics.mean(turns["ms"]),
+                "plain_ms": statistics.mean(turns["plain_ms"]),
+                "turns_ms": turns, "bound_ms": max(t.values()),
+                "bound_by": "bytes" if t["bytes"] >= max(t["fp32"], t["sfu"])
+                else "operations", "bound_parts_ms": t,
+                "fp32_ops": work["fp32"], "transc_ops": work["transc"],
+                "bytes": work["bytes"], "forks": work["forks"],
+                "fork_round_us": 1e3 * fork_ms[L],
+                "floor_ms": work["forks"] * fork_ms[L], "library_ms": None,
+                "launch_host_us": host_us(kernel, torch)}
+        line["decodes_per_s"] = rows / (line["ms"] / 1e3)
+        emit(line)
+        if (name, rows, L) == ("v2", 1024, 8):
+            entry = {
+                "name": "scl_decode", "route": "cuda",
+                "source": "echoseal_torch/csrc/scl_decode.cu",
+                "replaces": "echoseal_tpu/ops/scl.py:871 (_scl_decode_unrolled"
+                            ", a jitted XLA program, not a Pallas kernel)",
+                "launches": None, "max_abs_err": None,
+                **{k: line[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "floor_ms")},
+                "shape": {"spec": name, "rows": rows, "L": L}}
+        del x
+    return worst, entry
+
+
 def compat_phases(torch, card):
     """Phases 4-6.
 
@@ -820,6 +992,7 @@ def v2_phases(torch, card):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    scl_launches("v2", launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     accept = float(verdicts.mean())
     check(accept == 1.0,
@@ -895,9 +1068,11 @@ def v2_phases(torch, card):
     hard = rv.verify_batch(sil, nv, use_scl=False)
     hard_s = time.perf_counter() - t0
     details = {}
+    build.LAUNCHES.clear()
     t0 = time.perf_counter()
     full = rv.verify_batch(sil, nv, details=details)
     full_s = time.perf_counter() - t0
+    n_scl_launches = scl_launches("scl_ladder", build.LAUNCHES)
     rungs = rv.scl_rungs
     n_scl = sum(d.stage == "scl" for d in details.values())
     check(n_scl >= 1, "no clip rescued by the SCL ladder")
@@ -915,6 +1090,7 @@ def v2_phases(torch, card):
     emit({"phase": "scl_ladder", "B": B, "snr_db": 4.0,
           "hard_accept": float(hard.mean()), "ladder_accept": float(full.mean()),
           "rescued_by_scl": n_scl, "hard_s": hard_s, "ladder_call_s": full_s,
+          "scl_launches": n_scl_launches,
           "rungs": [{"rows": r, "L": L, "n_rows": n, "s": s}
                     for r, L, n, s in rungs],
           "cpu_clips": N_CPU_LADDER, "cpu_verdicts_equal": True,
@@ -929,6 +1105,7 @@ def v2_phases(torch, card):
                      for _ in range(N_SCL256)])
     y = (2.0 * bits - 1.0) + 0.3 * rng.standard_normal(bits.shape)
     llr = torch.from_numpy((2.0 * y / 0.09).astype(np.float32)).cuda()
+    build.LAUNCHES.clear()
     res = scl.scl_decode(llr, spec, 256)               # warm-up
     times = []
     for _ in range(3):
@@ -937,6 +1114,7 @@ def v2_phases(torch, card):
         res = scl.scl_decode(llr, spec, 256)
         res["crc_ok"].cpu()
         times.append(time.perf_counter() - t0)
+    n_scl_launches = scl_launches("scl256", build.LAUNCHES)
     want = scl.scl_decode(llr[:N_CPU_SCL256].cpu(), spec, 256)
 
     def passing(r, i):
@@ -948,7 +1126,7 @@ def v2_phases(torch, card):
               f"SCL-256 row {i}: card and CPU CRC-passing sets differ")
     emit({"phase": "scl256", "card": card, "rows": N_SCL256, "L": 256,
           "sigma": 0.3, "decodes_per_s": N_SCL256 / min(times),
-          "runs_s": times,
+          "runs_s": times, "scl_launches": n_scl_launches,
           "crc_pass_rows": int(res["crc_ok"].any(-1).sum()),
           "cpu_rows_equal": N_CPU_SCL256})
 
@@ -1178,6 +1356,7 @@ def recover_phases(torch, card, rv, cpu, stream):
     torch.cuda.synchronize()
     rec_s = time.perf_counter() - t0
     launches_rec = dict(build.LAUNCHES)
+    scl_launches("timescale_recover", launches_rec)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log = rv.recover_log
     accept = float(rec.mean())
@@ -1321,6 +1500,7 @@ def compat_single_phase(torch, card):
         stages[r.stage] = stages.get(r.stage, 0) + 1
         tries.append(r.tries)
     launches = dict(build.LAUNCHES)
+    scl_launches("compat_single", launches)
     split = _timer_totals(Timer)
     check(decode_launches(launches) >= N_SINGLE,
           f"payload_decode launches on the compat single-clip path: {launches}")
@@ -1331,9 +1511,12 @@ def compat_single_phase(torch, card):
     for name, key, clip in (("wrong_key", BAD_KEY, cut), ("noise", KEY, noise)):
         det = WatermarkDetector(key)
         Timer.registry.clear()
+        build.LAUNCHES.clear()
         r, dt = _timed(lambda: det.verify_detailed(clip, FS), torch)
         check(not r.authentic, f"compat {name} clip accepted: {r}")
-        rejects[name] = {"seconds": dt, "split": _timer_totals(Timer)}
+        rejects[name] = {"seconds": dt, "split": _timer_totals(Timer),
+                         "scl_launches": scl_launches(
+                             "compat_single_rejected", build.LAUNCHES)}
     frame = WatermarkEmbedder(KEY, rng=rng)._make_frame_chips()
     raw_ok, raw_s = _timed(
         lambda: WatermarkDetector(KEY).verify_raw_frame(frame), torch)
@@ -1379,6 +1562,7 @@ def v2_single_phase(torch, card):
         seconds.append(dt)
         stages[r.stage] = stages.get(r.stage, 0) + 1
     launches = dict(build.LAUNCHES)
+    scl_launches("v2_single", launches)
     split = _timer_totals(Timer)
     check(decode_launches(launches) >= N_SINGLE,
           f"payload_decode launches on the v2 single-clip path: {launches}")
@@ -1400,8 +1584,10 @@ def v2_single_phase(torch, card):
     rv_noise = robust.RobustVerifier(KEY)
     noise = (0.1 * rng.standard_normal(T35)).astype(np.float32)
     Timer.registry.clear()
+    build.LAUNCHES.clear()
     rn, sn = _timed(lambda: rv_noise.verify_detailed(noise, FS), torch)
     check(not rn.authentic, f"v2 noise clip accepted: {rn}")
+    noise_scl = scl_launches("v2_single_noise", build.LAUNCHES)
     emit({"phase": "v2_single", "card": card, "clips": N_SINGLE,
           "clip_s": 3.5, "list_size": 32, "accept": 1.0, "stages": stages,
           "verifier_init_s": ctor_s, "first_verify_s": first_s,
@@ -1413,7 +1599,8 @@ def v2_single_phase(torch, card):
                         "recovered": rts.timescale, "stage": rts.stage,
                         "seconds": sts, "split": ts_split},
           "noise": {"authentic": False, "seconds": sn,
-                    "split": _timer_totals(Timer)}})
+                    "split": _timer_totals(Timer),
+                    "scl_launches": noise_scl}})
     return decode_launches(launches), stream
 
 
@@ -1744,8 +1931,10 @@ def _pad(base: np.ndarray, width: int):
 
 
 def _verify_row(torch, verifier, clips: np.ndarray, nv: np.ndarray, *,
-                recover: bool = False, fs_in: int | None = None):
-    """One row on the card: (verdicts, details, measured fields)."""
+                recover: bool = False, fs_in: int | None = None,
+                scl_path: str | None = None):
+    """One row on the card: (verdicts, details, measured fields); its
+    scl_decode launches are added to ``scl_path``."""
     from echoseal_torch.ops import build
 
     x = torch.from_numpy(clips).cuda()
@@ -1769,6 +1958,9 @@ def _verify_row(torch, verifier, clips: np.ndarray, nv: np.ndarray, *,
     line = {"n": int(v.size), "accept": float(v.mean()), "verify_s": s,
             "audio_s_per_s": audio_s / s,
             "launches": decode_launches(build.LAUNCHES),
+            "scl_launches": (scl_launches(scl_path, build.LAUNCHES)
+                             if scl_path else
+                             build.LAUNCHES.get("scl_decode", 0)),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     if recover:
         log = verifier.recover_log
@@ -1888,14 +2080,15 @@ def clean_rows(torch, card, bv, rv, bases, jax_rows):
     from echoseal_torch.models import pipeline as pl
 
     clips, nv = _pad(bases["compat"], TPAD_REC)
-    v, _, line = _verify_row(torch, bv, clips, nv)
+    v, _, line = _verify_row(torch, bv, clips, nv, scl_path="impaired_compat")
     _row_line(card, "compat", "clean", line, gate=1.0,
               jax=_jax_accept(jax_rows["compat"], "clean"))
     check(line["accept"] == 1.0, f"compat clean accept {line['accept']}")
     compat = line["launches"]
     table = jax_rows["v2_speech"]
     clips, nv = _pad(bases["speech"], TPAD_REC)
-    v, _, line = _verify_row(torch, rv, clips, nv)
+    v, _, line = _verify_row(torch, rv, clips, nv,
+                             scl_path="impaired_v2_speech")
     _row_line(card, "v2_speech", "clean", line, gate=SPEECH_GATE,
               jax=_jax_accept(table, "clean"))
     check(line["accept"] >= SPEECH_GATE,
@@ -1903,7 +2096,8 @@ def clean_rows(torch, card, bv, rv, bases, jax_rows):
     speech = line["launches"]
     keep = (clips[:N_DEVICE_PAIR].copy(), nv[:N_DEVICE_PAIR])
     bad = pl.RobustBatchVerifier(BAD_KEY)
-    v, _, line = _verify_row(torch, bad, clips, nv)
+    v, _, line = _verify_row(torch, bad, clips, nv,
+                             scl_path="impaired_v2_speech")
     del bad
     _row_line(card, "v2_speech", "wrong-key", line, gate=0.0,
               jax=_jax_accept(table, "wrong-key"))
@@ -1917,7 +2111,8 @@ def impaired_compat_phase(torch, card, bv, st, jax_rows):
     for row in ("mp3-128k(sim)", "awgn+6dB", "awgn-15dB", "timescale+3.1%",
                 "reverb(6dB,150ms)"):
         clips, nv, stage = st.take(f"compat/{row}")
-        v, _, line = _verify_row(torch, bv, clips, nv)
+        v, _, line = _verify_row(torch, bv, clips, nv,
+                                 scl_path="impaired_compat")
         _row_line(card, "compat", row, line, stage, gate=0.0,
                   jax=_jax_accept(jax_rows["compat"], row))
         check(line["accept"] == 0.0,
@@ -1934,7 +2129,8 @@ def impaired_tone_phase(torch, card, rv, st, wm_row, jax_rows):
                       ("awgn-15dB", 0.0), (wm_row, IMPAIRED_GATE),
                       ("reverb(6dB,150ms)", IMPAIRED_GATE)):
         clips, nv, stage = st.take(f"v2_tone/{row}")
-        v, _, line = _verify_row(torch, rv, clips, nv)
+        v, _, line = _verify_row(torch, rv, clips, nv,
+                                 scl_path="impaired_v2_tone")
         _row_line(card, "v2_tone", row, line, stage, gate=gate,
                   jax=_jax_accept(jax_rows["v2_tone"], row))
         ok = line["accept"] >= gate if gate else line["accept"] == 0.0
@@ -1954,7 +2150,8 @@ def impaired_speech_phase(torch, card, rv, st, jax_rows):
                 "timescale+3.1%"):
         clips, nv, stage = st.take(f"v2_speech/{row}")
         v, _, line = _verify_row(torch, rv, clips, nv,
-                                 recover="timescale" in row)
+                                 recover="timescale" in row,
+                                 scl_path="impaired_v2_speech")
         jax = _jax_accept(table, row)
         line["below_jax_by_more_than_0.1"] = (
             jax is not None and line["accept"] < jax - 0.10)
@@ -1993,6 +2190,7 @@ def codec_phase(torch, card, rv, st, jax_rows):
             wrong_acc.append(bool(wrong.verify(y, fs_in)))
         wrong_s = time.perf_counter() - t0
         n_launch = decode_launches(build.LAUNCHES)
+        scl_launches("codec_rows", build.LAUNCHES)
         launches += n_launch
         batch[fs_in].append((name, out, lengths))
         rows[name] = {"fs_in": fs_in, "n": len(acc), "accepted": sum(acc),
@@ -2011,7 +2209,8 @@ def codec_phase(torch, card, rv, st, jax_rows):
         clips = np.concatenate([o for _, o, _ in parts])
         nv = np.concatenate([n for _, _, n in parts])
         v, _, line = _verify_row(torch, rv, clips, nv,
-                                 fs_in=None if fs_in == FS else fs_in)
+                                 fs_in=None if fs_in == FS else fs_in,
+                                 scl_path="codec_rows")
         line["per_row_accept"] = {
             name: float(v[i * CODEC_DRAWS:(i + 1) * CODEC_DRAWS].mean())
             for i, (name, _, _) in enumerate(parts)}
@@ -2545,6 +2744,10 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
             dt = time.perf_counter() - t0
             if mode == "serving":
                 launches_ladder += decode_launches(build.LAUNCHES)
+                check(build.LAUNCHES.get("scl_decode", 0) == 0,
+                      "the serving ladder launched the exact kernel")
+            else:
+                scl_launches("serving_phase_exact_ladder", build.LAUNCHES)
         runs[mode].append({
             "accept": float(v.mean()), "seconds": dt,
             "rescued_by_scl": sum(d.stage == "scl" for d in details.values()),
@@ -2591,6 +2794,8 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
         rec = rv.verify_batch_recover(scaled, nvs)
         rec_s = time.perf_counter() - t0
         launches_rec = decode_launches(build.LAUNCHES)
+        check(build.LAUNCHES.get("scl_decode", 0) == 0,
+              "the serving recovery launched the exact kernel")
     log = rv.recover_log
     del scaled
     rec_accept = float(rec.mean())
@@ -2629,6 +2834,11 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
                 r, dt = _timed(lambda: det.verify_detailed(noise, FS), torch)
                 if mode == "serving":
                     launches_single += decode_launches(build.LAUNCHES)
+                    check(build.LAUNCHES.get("scl_decode", 0) == 0,
+                          f"serving {tier} clip launched the exact kernel")
+                else:
+                    scl_launches("serving_phase_exact_single",
+                                 build.LAUNCHES)
             scl_s = _timer_totals(Timer).get(span, {}).get("total_s", 0.0)
             check(not r.authentic, f"{mode} {tier} noise clip accepted: {r}")
             check(scl_s > 0, f"{mode} {tier} noise clip ran no SCL pass")
@@ -2686,6 +2896,7 @@ def main() -> None:
     busy, mhz = busy_cycles(torch)
     llr_err, llr_entry = kernel_phase(torch, llr, flush, busy, mhz)
     decode_err, decode_entry = decode_kernel_phase(torch, llr, flush, busy)
+    scl_err, scl_entry = scl_kernel_phase(torch, flush, busy)
     del flush
 
     by_path = {}
@@ -2715,12 +2926,17 @@ def main() -> None:
     for path in ("native_tx", "gui_rx", "sharded_compat", "sharded_v2",
                  "serving_ladder", "serving_recover", "serving_single"):
         check(by_path[path] > 0, f"payload_decode never launched on {path}")
+    for path in SCL_PATHS:
+        check(SCL_BY_PATH.get(path, 0) > 0,
+              f"scl_decode never launched on {path}: {SCL_BY_PATH}")
     for entry, paths, err in ((decode_entry, by_path, decode_err),
-                              (llr_entry, llr_by_path, llr_err)):
+                              (llr_entry, llr_by_path, llr_err),
+                              (scl_entry, SCL_BY_PATH, scl_err)):
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
         entry["max_abs_err"] = err
-    print(json.dumps({"kernels": [decode_entry, llr_entry]}), flush=True)
+    print(json.dumps({"kernels": [decode_entry, llr_entry, scl_entry]}),
+          flush=True)
 
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

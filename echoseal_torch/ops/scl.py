@@ -27,8 +27,15 @@ ascending): a leaf fork writes its leaf's column.
 Numerics follow the JAX package: logaddexp f-combine, "positive LLR =>
 bit 1", penalties ``log1p(exp(-|llr|)) (+ |llr| if the decision
 disagrees)``, final lists sorted by a stable ascending sort of the
-metric.  Every op is eager, so a decode issues some 10**4 small kernels:
-it is correct and launch-bound.
+metric.  Every op of the walk is eager, so a decode issues some 10**4
+small kernels: it is correct and launch-bound.
+
+The exact walk is the plain version (``_scl_decode_plain``) of the
+hand-written kernel ``csrc/scl_decode.cu``, the port's counterpart of the
+JAX package's one-program ``_scl_decode_unrolled``: on a CUDA tensor every
+exact decode is one launch of it (``scl_decode_kernel``), which follows
+the walk's node sequence, built once per spec on the host
+(``node_schedule``); CPU tensors take the walk.
 
 Serving mode (fast-SSCL, Hashemi et al., "Fast and Flexible
 Successive-Cancellation List Decoders", IEEE TSP 2017) is another
@@ -44,6 +51,7 @@ two at call time (``scl_decode``, ``scl_decode_serving``).
 """
 from __future__ import annotations
 
+import ctypes
 import os
 from functools import lru_cache
 
@@ -51,6 +59,7 @@ import numpy as np
 import torch
 
 from echoseal_torch.core.device import resolve_device
+from echoseal_torch.ops import build
 from echoseal_torch.ops.polar import (
     PolarSpec,
     crc8_check_batch,
@@ -60,6 +69,10 @@ from echoseal_torch.ops.polar import (
 BIG_METRIC = 1e30
 IMPLS = ("serving", "unrolled", "blocked", "lazy", "dense")
 BLOCK_SEG = 16
+MAX_LIST = 256                 # the kernel's index maps are bytes
+MAX_LEVELS = 10                # N <= 1024
+# scl_decode.cu's op codes: word = code | level << 4 | side << 8
+OP_F, OP_G, OP_RATE0, OP_LEAF, OP_REP, OP_COMB = range(6)
 
 
 @lru_cache(maxsize=None)
@@ -351,18 +364,22 @@ class _ListDecoder:
         return self.buf(beta, bslot)
 
 
-@torch.no_grad()
-def _scl_decode(llr: torch.Tensor, spec: PolarSpec, list_size: int, *,
-                serving: bool = False, block_seg: int = BLOCK_SEG):
-    """One list decode, exact or (``serving``) fast-SSCL; see
-    ``scl_decode`` for the arguments and the result."""
-    llr = llr.to(torch.float32)
+def _check_input(llr: torch.Tensor, spec: PolarSpec) -> None:
     if llr.ndim != 2 or llr.shape[1] != spec.N:
         raise ValueError(f"scl_decode: llr of shape {tuple(llr.shape)}; "
                          f"need (B, {spec.N})")
     if not np.array_equal(spec.data_pos, np.flatnonzero(~spec.frozen)):
         raise ValueError("scl_decode: spec.data_pos must be the non-frozen "
                          "leaves in ascending order")
+
+
+@torch.no_grad()
+def _walk_decode(llr: torch.Tensor, spec: PolarSpec, list_size: int, *,
+                 serving: bool = False, block_seg: int = BLOCK_SEG):
+    """The eager walk, exact or (``serving``) fast-SSCL, on ``llr``'s
+    device; see ``scl_decode`` for the arguments and the result."""
+    llr = llr.to(torch.float32)
+    _check_input(llr, spec)
     dec = _ListDecoder(llr, spec, int(list_size), serving, int(block_seg))
     dec.walk(0, 0, _Buf(llr[:, None, :], 0, 0))
 
@@ -376,6 +393,214 @@ def _scl_decode(llr: torch.Tensor, spec: PolarSpec, list_size: int, *,
     return {"info_bits": info[rows, order],
             "crc_ok": crc_ok[rows, order],
             "metrics": metric[rows, order]}
+
+
+def _scl_decode_plain(llr: torch.Tensor, spec: PolarSpec, list_size: int):
+    """The exact decode as the eager walk on any device: the plain version
+    of ``scl_decode_kernel``."""
+    return _walk_decode(llr, spec, list_size)
+
+
+def _scl_decode(llr: torch.Tensor, spec: PolarSpec, list_size: int, *,
+                serving: bool = False, block_seg: int = BLOCK_SEG):
+    """One list decode.  The exact one is the kernel on a CUDA tensor and
+    the eager walk on a CPU tensor; the serving one is the eager walk on
+    both."""
+    if serving or llr.device.type == "cpu":
+        return _walk_decode(llr, spec, list_size, serving=serving,
+                            block_seg=block_seg)
+    _check_input(llr, spec)
+    return scl_decode_kernel(llr.to(torch.float32).contiguous(), spec,
+                             list_size)
+
+
+# ------------------------------------------------------------- the kernel
+def _op(code: int, level: int, side: int) -> int:
+    return code | level << 4 | side << 8
+
+
+@lru_cache(maxsize=32)
+def node_schedule(spec: PolarSpec) -> np.ndarray:
+    """The exact walk's node sequence for ``spec`` as ``scl_decode.cu``'s
+    int32 op words (``code | level << 4 | side << 8``).
+
+    The order of ``_ListDecoder.walk`` with ``serving=False``: a rate-0
+    node (a frozen leaf among them), an info leaf and a repetition node
+    are one op each; any other node is f, its left child, g, its right
+    child and the combine of the two children's partial sums.  ``side``
+    is the node's own side (its parent's left or right child), which
+    names the partial-sum slot its result goes to.
+    """
+    frozen = np.asarray(spec.frozen, dtype=bool)
+    N = frozen.size
+    n = N.bit_length() - 1
+    ops: list[int] = []
+
+    def walk(l: int, pos: int) -> None:
+        seg = N >> l
+        fr = frozen[pos:pos + seg]
+        side = (pos >> (n - l)) & 1
+        if fr.all():
+            ops.append(_op(OP_RATE0, l, side))
+        elif seg == 1:
+            ops.append(_op(OP_LEAF, l, side))
+        elif fr[:-1].all():
+            ops.append(_op(OP_REP, l, side))
+        else:
+            ops.append(_op(OP_F, l, 0))
+            walk(l + 1, pos)
+            ops.append(_op(OP_G, l, 0))
+            walk(l + 1, pos + seg // 2)
+            ops.append(_op(OP_COMB, l, side))
+
+    walk(0, 0)
+    return np.asarray(ops, dtype=np.int32)
+
+
+@lru_cache(maxsize=32)
+def device_schedule(spec: PolarSpec, device: torch.device) -> torch.Tensor:
+    """``node_schedule(spec)`` on ``device``, uploaded on the first call."""
+    return torch.as_tensor(node_schedule(spec), device=device)
+
+
+@lru_cache(maxsize=1)
+def _kernel():
+    lib = build.load("scl_decode")
+    ws = lib.scl_decode_workspace
+    ws.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    ws.restype = ctypes.c_int
+    fn = lib.scl_decode_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return ws, fn
+
+
+def _check_ops(ops: torch.Tensor, device: torch.device, n: int) -> None:
+    """Op words the kernel can follow at 2**n leaves: known codes, levels
+    up to n (below n for f, g and a combine, which write level + 1)."""
+    if ops.device != device or ops.dtype != torch.int32 or \
+            not ops.is_contiguous() or ops.ndim != 1:
+        raise ValueError("scl_decode_kernel: ops must be a contiguous int32 "
+                         "vector on the llr's device")
+    words = ops.cpu().numpy()
+    code, level = words & 15, (words >> 4) & 15
+    inner = np.isin(code, (OP_F, OP_G, OP_COMB))
+    if (words >> 9).any() or (code > OP_COMB).any() or (level > n).any() \
+            or (level[inner] >= n).any():
+        raise ValueError("scl_decode_kernel: op words out of range")
+
+
+def scl_decode_kernel(llr: torch.Tensor, spec: PolarSpec, list_size: int,
+                      ops: torch.Tensor | None = None):
+    """The exact list decode of ``_scl_decode_plain`` in one launch of
+    ``csrc/scl_decode.cu`` (counted in ``build.LAUNCHES["scl_decode"]``).
+
+    ``llr`` (B, N) float32, contiguous, on a CUDA device; N = ``spec.N`` a
+    power of two from 2 to 1024; 1 <= ``list_size`` <= 256; a CRC-8 spec.
+    ``ops`` replaces ``node_schedule(spec)`` (an int32 tensor on the same
+    device; a timing harness feeds it a run of leaves).  Anything else
+    raises; there is no fallback.  Returns ``scl_decode``'s dict.
+    """
+    L = int(list_size)
+    if not 1 <= L <= MAX_LIST:
+        raise ValueError(f"scl_decode_kernel: list size {L}; need 1 to "
+                         f"{MAX_LIST}")
+    N = spec.N
+    n = N.bit_length() - 1
+    if llr.ndim != 2 or llr.shape[1] != N or N != 1 << n or \
+            not 1 <= n <= MAX_LEVELS:
+        raise ValueError(f"scl_decode_kernel: llr of shape "
+                         f"{tuple(llr.shape)} for N = {N}; need (B, N) with "
+                         f"N a power of two from 2 to {1 << MAX_LEVELS}")
+    if spec.crc_size != 8:
+        raise ValueError(f"scl_decode_kernel: CRC of {spec.crc_size} bits; "
+                         "need CRC-8")
+    if llr.device.type != "cuda":
+        raise ValueError(f"scl_decode_kernel: llr on {llr.device}; need a "
+                         "CUDA device")
+    if llr.dtype != torch.float32 or not llr.is_contiguous():
+        raise ValueError("scl_decode_kernel: llr must be contiguous float32")
+    B = llr.shape[0]
+    if B >= 2 ** 31:
+        raise ValueError("scl_decode_kernel: more than 2**31 - 1 rows")
+    dev = llr.device
+    info = torch.empty((B, L, spec.info_len), dtype=torch.int32, device=dev)
+    ok = torch.empty((B, L), dtype=torch.bool, device=dev)
+    metric = torch.empty((B, L), dtype=torch.float32, device=dev)
+    out = {"info_bits": info, "crc_ok": ok, "metrics": metric}
+    if B == 0:
+        return out
+    if ops is None:
+        ops = device_schedule(spec, dev)
+    else:
+        _check_ops(ops, dev, n)
+    tabs = device_tables(spec, dev)
+    workspace, launch = _kernel()
+    with torch.cuda.device(dev):
+        need = ctypes.c_longlong(0)
+        rc = workspace(n, L, B, ctypes.byref(need))
+        if rc != 0:
+            raise RuntimeError(f"scl_decode kernel plan failed: cudaError {rc}")
+        scratch = torch.empty(need.value, dtype=torch.uint8, device=dev)
+        rc = launch(llr.data_ptr(), B, n, L, ops.data_ptr(), ops.numel(),
+                    tabs.data_pos.data_ptr(), tabs.crc_cols.data_ptr(),
+                    spec.info_len, scratch.data_ptr(), need.value,
+                    info.data_ptr(), ok.data_ptr(), metric.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"scl_decode kernel launch failed: cudaError {rc}")
+    build.LAUNCHES["scl_decode"] += 1
+    return out
+
+
+def list_agreement(got: dict, want: dict, tol: float = 1e-4) -> dict:
+    """How two exact decodes of the same rows agree (the kernel against the
+    walk): the kernel's contract, as counts.
+
+    ``sets_equal``: every row's set of CRC-passing payloads is the same;
+    ``first_pass_equal``: so are the info bits of each row's first
+    CRC-passing path; ``metrics_close``: the sorted metrics agree within
+    rtol = atol = ``tol``; ``mismatched``: paths that differ (info bits or
+    crc_ok) where ``want``'s neighbouring metrics are more than ``tol``
+    apart, which the contract allows none of; ``ties``: paths that differ
+    beside such a near-equal neighbour (a sum in another float32 order may
+    swap them), allowed and counted; ``holds``: the contract is met.
+    """
+    g = {k: v.cpu() for k, v in got.items()}
+    w = {k: v.cpu() for k, v in want.items()}
+    m = w["metrics"]
+    same = (g["info_bits"] == w["info_bits"]).all(-1) & \
+        (g["crc_ok"] == w["crc_ok"])
+    near = torch.isclose(m[:, :-1], m[:, 1:], rtol=tol, atol=tol)
+    tied = torch.zeros_like(same)
+    tied[:, 1:] |= near
+    tied[:, :-1] |= near
+    packed = {k: np.packbits(r["info_bits"].numpy().astype(np.uint8), -1)
+              for k, r in (("g", g), ("w", w))}
+    sets_equal = first_equal = True
+    for i in range(m.shape[0]):
+        ok_g, ok_w = g["crc_ok"][i].numpy(), w["crc_ok"][i].numpy()
+        sg = {b.tobytes() for b in packed["g"][i][ok_g]}
+        sw = {b.tobytes() for b in packed["w"][i][ok_w]}
+        sets_equal &= sg == sw
+        if ok_w.any() or ok_g.any():
+            first_equal &= bool(ok_w.any() and ok_g.any()) and np.array_equal(
+                packed["g"][i][ok_g.argmax()], packed["w"][i][ok_w.argmax()])
+    close = bool(torch.isclose(g["metrics"], m, rtol=tol, atol=tol).all())
+    mismatched = int((~same & ~tied).sum())
+    return {"rows": int(m.shape[0]), "sets_equal": bool(sets_equal),
+            "first_pass_equal": bool(first_equal), "metrics_close": close,
+            "max_metric_err": float((g["metrics"] - m).abs().max())
+            if m.numel() else 0.0,
+            "mismatched": mismatched, "ties": int((~same & tied).sum()),
+            "crc_pass_rows": int(w["crc_ok"].any(-1).sum()),
+            "holds": bool(sets_equal and first_equal and close
+                          and mismatched == 0)}
 
 
 def _block_seg() -> int:

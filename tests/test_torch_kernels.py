@@ -8,15 +8,17 @@ cannot load tests/conftest.py), run it as
 
 The kernel tests skip without a CUDA device: a CUDA kernel has no CPU mode.
 The plain versions they are held against are themselves held against the
-JAX package in tests/test_torch_demod.py.
+JAX package in tests/test_torch_demod.py, tests/test_torch_payload_decode.py
+and (the SCL list decoder's eager walk) tests/test_torch_scl.py.
 """
 import numpy as np
 import pytest
 import torch
 
 from echoseal_torch.core.params import FRAME_LEN, HDR_L, PRE_L
-from echoseal_torch.core.profiles import polar_spec_standard
-from echoseal_torch.ops import build, llr, polar
+from echoseal_torch.core.profiles import ROBUST, polar_spec_standard, \
+    profile_spec
+from echoseal_torch.ops import build, llr, polar, scl
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 SPECS = {"compat": polar.polar_spec, "standard-448": polar_spec_standard}
@@ -51,10 +53,11 @@ def test_payload_llr_rejects_other_devices():
 
 
 def test_kernel_sources_found():
-    assert build.sources() == ["payload_decode", "payload_llr"]
+    assert build.sources() == ["payload_decode", "payload_llr", "scl_decode"]
     assert build.library_path("payload_llr").name.startswith("libpayload_llr-")
     assert build.library_path("payload_decode").name.startswith(
         "libpayload_decode-")
+    assert build.library_path("scl_decode").name.startswith("libscl_decode-")
 
 
 def _decode_inputs(n, device, spec, seed=0, lead=None, m=64):
@@ -191,3 +194,145 @@ def test_payload_decode_refusals_on_card():
     with pytest.raises(ValueError):                      # not N = 1024
         llr.payload_decode(chips, table, idx, polar.polar_spec(N=512, K=256))
     assert build.LAUNCHES["payload_decode"] == before
+
+
+# ------------------------------------------------------------ SCL decoder
+SCL_SPECS = {"compat": polar.polar_spec, "v2": lambda: profile_spec(ROBUST)}
+
+
+def _scl_rows(spec, n, seed=0):
+    """(n, N) float32 LLRs of ``spec``'s codewords: noisy rows at sigma
+    0.35 (the decoders' waterfall), then a noiseless one and an all-zero
+    one, clipped to the pipeline's +-16."""
+    rng = np.random.default_rng(seed)
+    bits = np.stack([polar.encode_np(rng.bytes(spec.info_len // 8), spec)
+                     for _ in range(n)])
+    sigma = np.full((n, 1), 0.35)
+    sigma[-2] = 1e-3
+    y = (2.0 * bits - 1.0) + sigma * rng.standard_normal(bits.shape)
+    out = np.clip(2.0 * y / sigma ** 2, -16.0, 16.0).astype(np.float32)
+    out[-1] = 0.0
+    return out
+
+
+def _lists(info, ok, metric):
+    return {"info_bits": torch.as_tensor(info, dtype=torch.int32),
+            "crc_ok": torch.as_tensor(ok), "metrics": torch.as_tensor(
+                metric, dtype=torch.float32)}
+
+
+def test_scl_list_agreement_counts():
+    """The contract's counts: a swap beside a near-equal metric is a tie,
+    one elsewhere a mismatch; CRC-passing sets and first passing paths."""
+    info = np.zeros((1, 4, 8), np.int32)
+    info[0, :, 0] = [0, 1, 0, 1]
+    info[0, :, 1] = [0, 0, 1, 1]
+    want = _lists(info, [[False, True, True, False]], [[1.0, 2.0, 2.00001,
+                                                        5.0]])
+    assert scl.list_agreement(want, want)["holds"]
+    swap = _lists(info[:, [0, 2, 1, 3]], [[False, True, True, False]],
+                  [[1.0, 2.00001, 2.0, 5.0]])
+    got = scl.list_agreement(swap, want)
+    assert (got["ties"], got["mismatched"]) == (2, 0)
+    assert got["sets_equal"] and not got["first_pass_equal"]
+    far = _lists(info[:, [3, 1, 2, 0]], [[False, True, True, False]],
+                 [[1.0, 2.0, 2.00001, 5.0]])
+    got = scl.list_agreement(far, want)
+    assert (got["ties"], got["mismatched"]) == (0, 2)
+    assert not got["holds"]
+    lost = _lists(info, [[False, True, False, False]],
+                  [[1.0, 2.0, 2.00001, 5.0]])
+    assert not scl.list_agreement(lost, want)["sets_equal"]
+
+
+def test_scl_op_words_checked():
+    """Op words handed to the kernel are checked on the host: both specs'
+    schedules pass, a level or code the kernel cannot follow raises."""
+    cpu = torch.device("cpu")
+    for make in SCL_SPECS.values():
+        scl._check_ops(torch.from_numpy(scl.node_schedule(make())), cpu, 10)
+    for word in (scl._op(scl.OP_G, 10, 0), scl._op(scl.OP_RATE0, 11, 1),
+                 scl._op(scl.OP_COMB + 1, 3, 0), 1 << 9, -1):
+        with pytest.raises(ValueError, match="out of range"):
+            scl._check_ops(torch.tensor([word], dtype=torch.int32), cpu, 10)
+    with pytest.raises(ValueError, match="int32"):
+        scl._check_ops(torch.zeros(2, dtype=torch.int64), cpu, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 8, 32, 256])
+@pytest.mark.parametrize("spec_name", list(SCL_SPECS))
+def test_scl_decode_kernel_on_card(spec_name, L):
+    """The SCL kernel against the eager walk on the card, on noisy,
+    noiseless and zero-LLR rows: per row the same CRC-passing payloads and
+    first passing path, sorted metrics within rtol = atol = 1e-4 (the
+    walk's node sums are torch reductions, the kernel's run in index
+    order), and the lists path for path except beside a near-equal
+    metric.  One launch per call; ``scl_decode`` routes a CUDA tensor to
+    it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    spec = SCL_SPECS[spec_name]()
+    x = torch.from_numpy(_scl_rows(spec, 8, seed=L)).cuda()
+    before = build.LAUNCHES["scl_decode"]
+    got = scl.scl_decode_kernel(x, spec, L)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["scl_decode"] == before + 1
+    want = scl._scl_decode_plain(x, spec, L)
+    agree = scl.list_agreement(got, want)
+    assert agree["holds"], agree
+    assert got["info_bits"].shape == (8, L, spec.info_len)
+    assert got["crc_ok"][-2, 0]                      # the noiseless row
+    routed = scl.scl_decode(x, spec, L)
+    assert build.LAUNCHES["scl_decode"] == before + 2
+    for k in got:
+        assert torch.equal(routed[k], got[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,L,rows", [
+    (16, 16, 3, 40), (64, 40, 5, 40), (512, 256, 37, 40),
+    (1024, 448, 129, 24), (1024, 448, 32, 700), (1024, 448, 256, 300)],
+    ids=["N16-rate1-L3", "N64-L5", "N512-L37", "N1024-L129", "rows700-L32",
+         "rows300-L256"])
+def test_scl_decode_kernel_other_shapes_on_card(N, K, L, rows):
+    """Other code lengths, list sizes that are no power of two, and more
+    rows than the card holds blocks at once (the grid strides over them):
+    the same contract against the eager walk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    spec = polar.polar_spec(N=N, K=K)
+    x = torch.from_numpy(_scl_rows(spec, rows, seed=N + L)).cuda()
+    got = scl.scl_decode_kernel(x, spec, L)
+    torch.cuda.synchronize()
+    agree = scl.list_agreement(got, scl._scl_decode_plain(x, spec, L))
+    assert agree["holds"], agree
+    assert got["crc_ok"][-2, 0]
+
+
+@pytest.mark.cuda
+def test_scl_decode_refusals_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    spec = polar.polar_spec()
+    x = torch.from_numpy(_scl_rows(spec, 4)).cuda()
+    before = build.LAUNCHES["scl_decode"]
+    for args in ((x.cpu(), spec, 8),                    # not on the card
+                 (x.double(), spec, 8),                 # float64
+                 (x.mT.contiguous().mT, spec, 8),       # column-major
+                 (x[:, :512], spec, 8),                 # width
+                 (x, spec, 0), (x, spec, 257)):         # list size
+        with pytest.raises(ValueError):
+            scl.scl_decode_kernel(*args)
+    with pytest.raises(ValueError):                     # the ops' device
+        scl.scl_decode_kernel(x, spec, 8,
+                              ops=torch.from_numpy(scl.node_schedule(spec)))
+    for word in (scl._op(scl.OP_F, 10, 0), scl._op(scl.OP_LEAF, 11, 0),
+                 scl._op(scl.OP_COMB + 1, 3, 0), -1):   # a level or code
+        with pytest.raises(ValueError, match="out of range"):
+            scl.scl_decode_kernel(x, spec, 8, ops=torch.tensor(
+                [word], dtype=torch.int32, device="cuda"))
+    assert build.LAUNCHES["scl_decode"] == before
+    empty = scl.scl_decode_kernel(x[:0], spec, 8)
+    assert empty["info_bits"].shape == (0, 8, spec.info_len)
+    assert build.LAUNCHES["scl_decode"] == before
