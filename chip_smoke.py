@@ -255,11 +255,13 @@ FP32_FLOP_PER_S = 67e12
 # (H100 SXM, the Hopper architecture white paper)
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # phase 3c's shapes (spec, rows, L, sigma): phase 10's SCL-256, the compat
-# single clip's batch, the v2 single clip's rows, and the v2 ladder's rungs
-# (1024 and 321 rows at L = 8, 107 at L = 32: phase 9's rungs)
+# single clip's batch, the v2 single clip's rows, the v2 ladder's rungs
+# (1024 and 321 rows at L = 8, 107 at L = 32: phase 9's rungs), and a
+# compat single clip's batch at `rx_app --list-size 512`
 SCL_SHAPES = (("compat", 128, 256, 0.3), ("compat", 32, 256, 0.35),
               ("v2", 32, 32, 0.35), ("v2", 1024, 8, 0.35),
-              ("v2", 321, 8, 0.35), ("v2", 107, 32, 0.35))
+              ("v2", 321, 8, 0.35), ("v2", 107, 32, 0.35),
+              ("compat", 32, 512, 0.35))
 SCL_TOL = 1e-4
 # paths whose run must have launched scl_decode
 SCL_PATHS = ("scl_ladder", "scl256", "timescale_recover",
@@ -686,8 +688,11 @@ def scl_kernel_phase(torch, flush, busy):
     operations over the fp32 peak and the exp/log1p over the SFU rate
     (``_scl_work``); ``floor_ms``, the dependency chain: the schedule's
     forks times one fork round at this L (``_fork_round_ms``), which a
-    row's block cannot beat however the rows spread.  Returns (the largest
-    metric difference, the ladder's first-rung ``kernels`` entry).
+    row's group of threads cannot beat however the rows spread.  ``plan``,
+    the launch's layout (``scl.kernel_plan``): threads and shared memory
+    per row, rows per block, blocks, the SMs they occupy, device scratch
+    per row.  Returns (the largest metric difference, the ladder's
+    first-rung ``kernels`` entry).
     """
     from echoseal_torch.core.profiles import ROBUST, profile_spec
     from echoseal_torch.ops import polar, scl
@@ -739,7 +744,8 @@ def scl_kernel_phase(torch, flush, busy):
                 "bytes": work["bytes"], "forks": work["forks"],
                 "fork_round_us": 1e3 * fork_ms[L],
                 "floor_ms": work["forks"] * fork_ms[L], "library_ms": None,
-                "launch_host_us": host_us(kernel, torch)}
+                "launch_host_us": host_us(kernel, torch),
+                "plan": scl.kernel_plan(spec.N, L, rows)}
         line["decodes_per_s"] = rows / (line["ms"] / 1e3)
         emit(line)
         if (name, rows, L) == ("v2", 1024, 8):

@@ -33,9 +33,10 @@ small kernels: it is correct and launch-bound.
 The exact walk is the plain version (``_scl_decode_plain``) of the
 hand-written kernel ``csrc/scl_decode.cu``, the port's counterpart of the
 JAX package's one-program ``_scl_decode_unrolled``: on a CUDA tensor every
-exact decode is one launch of it (``scl_decode_kernel``), which follows
-the walk's node sequence, built once per spec on the host
-(``node_schedule``); CPU tensors take the walk.
+exact decode is one launch of it (``scl_decode_kernel``), which follows the
+walk's node sequence, built once per spec on the host (``node_schedule``),
+and raises outside its domain (1 <= L <= 65536, N <= 1024, CRC-8); CPU
+tensors take the walk.
 
 Serving mode (fast-SSCL, Hashemi et al., "Fast and Flexible
 Successive-Cancellation List Decoders", IEEE TSP 2017) is another
@@ -69,7 +70,7 @@ from echoseal_torch.ops.polar import (
 BIG_METRIC = 1e30
 IMPLS = ("serving", "unrolled", "blocked", "lazy", "dense")
 BLOCK_SEG = 16
-MAX_LIST = 256                 # the kernel's index maps are bytes
+MAX_LIST = 1 << 16            # the kernel's index maps are 16-bit
 MAX_LEVELS = 10                # N <= 1024
 # scl_decode.cu's op codes: word = code | level << 4 | side << 8
 OP_F, OP_G, OP_RATE0, OP_LEAF, OP_REP, OP_COMB = range(6)
@@ -405,7 +406,8 @@ def _scl_decode(llr: torch.Tensor, spec: PolarSpec, list_size: int, *,
                 serving: bool = False, block_seg: int = BLOCK_SEG):
     """One list decode.  The exact one is the kernel on a CUDA tensor and
     the eager walk on a CPU tensor; the serving one is the eager walk on
-    both."""
+    both.  A CUDA tensor's exact decode outside the kernel's domain raises
+    (``scl_decode_kernel``)."""
     if serving or llr.device.type == "cpu":
         return _walk_decode(llr, spec, list_size, serving=serving,
                             block_seg=block_seg)
@@ -463,13 +465,34 @@ def device_schedule(spec: PolarSpec, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(node_schedule(spec), device=device)
 
 
-@lru_cache(maxsize=1)
-def _kernel():
-    lib = build.load("scl_decode")
-    ws = lib.scl_decode_workspace
-    ws.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_longlong)]
-    ws.restype = ctypes.c_int
+@lru_cache(maxsize=32)
+def kernel_tables(spec: PolarSpec,
+                  device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``scl_decode.cu``'s two int16 tables for ``spec`` on ``device``
+    (uploaded on the first call): the info bits' leaf positions, and per
+    leaf position what a set bit there adds to the CRC word, the CRC-8 byte
+    of an info bit (low byte) or 1 << (8 + c) for the c-th CRC bit, so that
+    a codeword passes when the word's two bytes agree."""
+    info = spec.info_len
+    pos = np.asarray(spec.data_pos, dtype=np.int64)
+    cols = spec.crc_mat.astype(np.int64) << np.arange(8)
+    tab = np.zeros(spec.N, dtype=np.int64)
+    tab[pos[:info]] = np.bitwise_or.reduce(cols, axis=1)
+    tab[pos[info:info + 8]] = 1 << (8 + np.arange(spec.crc_size))
+    return (torch.as_tensor(pos[:info].astype(np.int16), device=device),
+            torch.as_tensor(tab.astype(np.uint16).view(np.int16),
+                            device=device))
+
+
+def bind(lib: ctypes.CDLL) -> tuple:
+    """``scl_decode.cu``'s entry points in ``lib`` (the built kernel, or a
+    copy of it such as ``tools/scl_trace.py``'s), typed: (plan, workspace,
+    launch)."""
+    for name in ("scl_decode_plan", "scl_decode_workspace"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
     fn = lib.scl_decode_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -477,7 +500,31 @@ def _kernel():
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return ws, fn
+    return lib.scl_decode_plan, lib.scl_decode_workspace, fn
+
+
+@lru_cache(maxsize=1)
+def _kernel():
+    return bind(build.load("scl_decode"))
+
+
+PLAN_FIELDS = ("threads_per_row", "rows_per_block", "blocks", "sms",
+               "smem_per_row", "smem_per_block", "scratch_per_row",
+               "slots_in_smem")
+
+
+def kernel_plan(N: int, list_size: int, rows: int) -> dict:
+    """How ``scl_decode_kernel`` lays out a call of ``rows`` rows of length
+    ``N`` at list size L on the current CUDA device (``PLAN_FIELDS``;
+    bytes for the memory), plus the SMs the grid occupies."""
+    plan, _, _ = _kernel()
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    rc = plan(N.bit_length() - 1, int(list_size), int(rows), out)
+    if rc != 0:
+        raise RuntimeError(f"scl_decode kernel plan failed: cudaError {rc}")
+    got = dict(zip(PLAN_FIELDS, out))
+    got["sms_used"] = min(got["blocks"], got["sms"])
+    return got
 
 
 def _check_ops(ops: torch.Tensor, device: torch.device, n: int) -> None:
@@ -496,15 +543,17 @@ def _check_ops(ops: torch.Tensor, device: torch.device, n: int) -> None:
 
 
 def scl_decode_kernel(llr: torch.Tensor, spec: PolarSpec, list_size: int,
-                      ops: torch.Tensor | None = None):
+                      ops: torch.Tensor | None = None, kernel=None):
     """The exact list decode of ``_scl_decode_plain`` in one launch of
     ``csrc/scl_decode.cu`` (counted in ``build.LAUNCHES["scl_decode"]``).
 
     ``llr`` (B, N) float32, contiguous, on a CUDA device; N = ``spec.N`` a
-    power of two from 2 to 1024; 1 <= ``list_size`` <= 256; a CRC-8 spec.
-    ``ops`` replaces ``node_schedule(spec)`` (an int32 tensor on the same
-    device; a timing harness feeds it a run of leaves).  Anything else
-    raises; there is no fallback.  Returns ``scl_decode``'s dict.
+    power of two from 2 to 1024; 1 <= ``list_size`` <= 65536 (``MAX_LIST``:
+    the 16-bit path maps); a CRC-8 spec.  ``ops`` replaces
+    ``node_schedule(spec)`` (an int32 tensor on the same device; a timing
+    harness feeds it a run of leaves); ``kernel``, ``bind`` of another build
+    of the source (a diagnostic's instrumented copy).  Anything else raises;
+    there is no fallback.  Returns ``scl_decode``'s dict.
     """
     L = int(list_size)
     if not 1 <= L <= MAX_LIST:
@@ -539,8 +588,8 @@ def scl_decode_kernel(llr: torch.Tensor, spec: PolarSpec, list_size: int,
         ops = device_schedule(spec, dev)
     else:
         _check_ops(ops, dev, n)
-    tabs = device_tables(spec, dev)
-    workspace, launch = _kernel()
+    info_pos, crc_tab = kernel_tables(spec, dev)
+    _, workspace, launch = kernel or _kernel()
     with torch.cuda.device(dev):
         need = ctypes.c_longlong(0)
         rc = workspace(n, L, B, ctypes.byref(need))
@@ -548,7 +597,7 @@ def scl_decode_kernel(llr: torch.Tensor, spec: PolarSpec, list_size: int,
             raise RuntimeError(f"scl_decode kernel plan failed: cudaError {rc}")
         scratch = torch.empty(need.value, dtype=torch.uint8, device=dev)
         rc = launch(llr.data_ptr(), B, n, L, ops.data_ptr(), ops.numel(),
-                    tabs.data_pos.data_ptr(), tabs.crc_cols.data_ptr(),
+                    info_pos.data_ptr(), crc_tab.data_ptr(),
                     spec.info_len, scratch.data_ptr(), need.value,
                     info.data_ptr(), ok.data_ptr(), metric.data_ptr(),
                     torch.cuda.current_stream().cuda_stream)

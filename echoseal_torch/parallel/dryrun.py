@@ -73,11 +73,22 @@ def _same(got: dict, want: dict, what: str) -> None:
             _check(torch.equal(torch.isfinite(g), fin) and torch.equal(
                 g[~fin].nan_to_num(), w[~fin].nan_to_num()),
                 f"{what} {k}: non-finite entries differ")
-            g, w = g[fin], w[fin]
-            scale = max(float(w.abs().max()), 1.0) if w.numel() else 1.0
-            err = float((g - w).abs().max()) if w.numel() else 0.0
-            _check(err <= FLOAT_TOL * scale,
-                   f"{what} {k}: sharded differs from unsharded by {err}")
+            scale = max(float(w[fin].abs().max()), 1.0) if fin.any() else 1.0
+            diff = torch.where(fin, g - w, 0.0).abs()
+            err = float(diff.max()) if diff.numel() else 0.0
+            if err > FLOAT_TOL * scale:
+                at = tuple(int(i) for i in np.unravel_index(
+                    int(diff.argmax()), tuple(diff.shape)))
+                lag = ""
+                if k == "peak_val" and "peak_idx" in want:   # a peak's lag
+                    lag = (f", lag {int(got['peak_idx'][at])} sharded, "
+                           f"{int(want['peak_idx'][at])} unsharded")
+                _check(False, f"{what} {k}: sharded differs from unsharded "
+                              f"by {err} (tolerance {FLOAT_TOL * scale}) at "
+                              f"row {at[0]}, index {at[1:]} of "
+                              f"{tuple(w.shape)}{lag}: sharded "
+                              f"{float(g[at])!r}, unsharded "
+                              f"{float(w[at])!r}")
         else:
             _check(torch.equal(g, w), f"{what} {k}: sharded != unsharded")
 

@@ -245,6 +245,20 @@ def test_scl_list_agreement_counts():
     assert not scl.list_agreement(lost, want)["sets_equal"]
 
 
+def test_scl_trace_stamps_the_kernel_source():
+    """``tools/scl_trace.py`` finds its anchors in ``scl_decode.cu``: a
+    stamp at every node op and one before the final lists."""
+    from echoseal_torch.tools import scl_trace
+
+    src = (build.CSRC / "scl_decode.cu").read_text()
+    traced = scl_trace.traced_source(src)
+    assert traced.count("g_stamp[") == 3            # declaration + 2 stamps
+    assert "scl_trace_read" in traced and "scl_trace_read" not in src
+    with pytest.raises(RuntimeError, match="anchor"):
+        scl_trace.traced_source(src.replace("int P2 = pow2_at_least(L)",
+                                            "int P2 = L"))
+
+
 def test_scl_op_words_checked():
     """Op words handed to the kernel are checked on the host: both specs'
     schedules pass, a level or code the kernel cannot follow raises."""
@@ -311,6 +325,65 @@ def test_scl_decode_kernel_other_shapes_on_card(N, K, L, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("which,L,rows", [
+    ("compat", 1, 13), ("v2", 3, 7), ("v2", 8, 13), ("compat", 16, 10),
+    ("v2", 17, 9), ("compat", 33, 5), ("compat", 256, 32),
+    ("compat", 256, 1), ("compat", 512, 4), ("compat", 1024, 3),
+    ("compat", 2048, 2)],
+    ids=["L1-rows13", "L3-rows7", "L8-rows13", "L16-rows10", "L17-rows9",
+         "L33-rows5", "L256-rows32", "L256-rows1", "L512-rows4",
+         "L1024-rows3", "L2048-rows2"])
+def test_scl_decode_kernel_plans_on_card(which, L, rows):
+    """The kernel's own plans against the eager walk: one-warp rows four to
+    a block at L <= 16 and two-warp rows two to a block at L 17-32, with
+    row counts that leave a block part-filled; L = 33, the first one-block
+    list; a compat single clip's 32 rows and one row at L = 256, fewer rows
+    than SMs; and 16-bit path maps at L = 512 and 1024, which the wide
+    alpha levels' device scratch serves, and at L = 2048, where a thread
+    takes two paths and four keys and the metrics, keys and maps move to
+    device scratch too.  The same contract, with the noiseless and zero-LLR
+    rows among the rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    spec = SCL_SPECS[which]()
+    x = torch.from_numpy(_scl_rows(spec, max(rows, 2), seed=L + rows)).cuda()
+    x = x[-rows:].contiguous()
+    plan = scl.kernel_plan(spec.N, L, rows)
+    assert plan["threads_per_row"] == (
+        32 if L <= 16 else 64 if L <= 32 else 1024 if L > 256
+        else min(512, 1 << (4 * L - 1).bit_length()))
+    assert plan["rows_per_block"] == min(rows, 128 // plan["threads_per_row"]
+                                         if L <= 32 else 1)
+    got = scl.scl_decode_kernel(x, spec, L)
+    torch.cuda.synchronize()
+    agree = scl.list_agreement(got, scl._scl_decode_plain(x, spec, L))
+    assert agree["holds"], agree
+    assert got["info_bits"].shape == (rows, L, spec.info_len)
+    if rows >= 2:
+        assert got["crc_ok"][-2, 0]                  # the noiseless row
+
+
+@pytest.mark.cuda
+def test_scl_decode_routes_list_sizes_on_card():
+    """On the card ``scl_decode`` decodes L = 512 and L = 1025 (past the
+    old byte maps and a 1024-thread block's one path a thread) each in one
+    launch of the kernel, which holds the contract against the walk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    spec = polar.polar_spec()
+    x = torch.from_numpy(_scl_rows(spec, 2, seed=5)).cuda()
+    for L in (512, 1025):
+        launches = build.LAUNCHES["scl_decode"]
+        got = scl.scl_decode(x, spec, L)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["scl_decode"] == launches + 1
+        assert got["info_bits"].shape == (2, L, spec.info_len)
+        agree = scl.list_agreement(got, scl._scl_decode_plain(x, spec, L))
+        assert agree["holds"], (L, agree)
+        assert got["crc_ok"][0, 0]                   # the noiseless row
+
+
+@pytest.mark.cuda
 def test_scl_decode_refusals_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -321,7 +394,7 @@ def test_scl_decode_refusals_on_card():
                  (x.double(), spec, 8),                 # float64
                  (x.mT.contiguous().mT, spec, 8),       # column-major
                  (x[:, :512], spec, 8),                 # width
-                 (x, spec, 0), (x, spec, 257)):         # list size
+                 (x, spec, 0), (x, spec, 65537)):       # list size
         with pytest.raises(ValueError):
             scl.scl_decode_kernel(*args)
     with pytest.raises(ValueError):                     # the ops' device

@@ -150,8 +150,13 @@ def _replay(llr, spec, L):
 
     Slot l holds alpha of level l (slot 0 is the LLR row), slot
     n + 1 + 2l + s the partial sums of (level l, side s); an op writes its
-    slot for every path (path p's buffer at p, its index reset to p), and a
-    fork gathers every slot's index column by the survivors' parents.
+    slot for every path (path p's buffer at p, its index reset to p).  A
+    fork gathers by the survivors' parents only the index columns the
+    kernel keeps live: for each level l above the fork, alpha l while the
+    walk is in the left child of its level-l node (``dir`` bit l clear; an
+    f sets it so, a g the other way), else the left child's sums of level
+    l + 1.  Every other slot keeps a stale column until it is written, so a
+    slot read after a fork that this rule missed gives other lists.
     ``near_tie`` marks the rows where some fork kept one of two live
     candidates whose metrics differ, but by less than the metric tolerance
     (another float32 order of summation may keep the other).
@@ -164,6 +169,7 @@ def _replay(llr, spec, L):
     metric[:, 0] = 0.0
     buf, src = {0: llr[:, None, :].expand(B, L, N)}, {0: ident}
     near_tie = torch.zeros(B, dtype=torch.bool)
+    right = [False] * n                 # dir: in the right child at level l
 
     def read(slot):
         return buf[slot][rows, src[slot]]
@@ -177,6 +183,7 @@ def _replay(llr, spec, L):
         if code in (pscl.OP_F, pscl.OP_G):
             a = read(l)
             h = a.shape[-1] // 2
+            right[l] = code == pscl.OP_G
             write(l + 1, pscl._f_combine(a[..., :h], a[..., h:])
                   if code == pscl.OP_F else
                   pscl._g_combine(a[..., :h], a[..., h:], read(n + 3 + 2 * l)))
@@ -197,7 +204,10 @@ def _replay(llr, spec, L):
             near_tie |= (gap > 0) & (gap <= 1e-3 + 1e-4 * kept.abs()) \
                 & (cut < pscl.BIG_METRIC)
             metric, parent = vals[:, :L], idx[:, :L] >> 1
-            src = {k: v.gather(1, parent) for k, v in src.items()}
+            live = [n + 3 + 2 * lv if right[lv] else lv
+                    for lv in range(l) if right[lv] or lv]
+            for k in live:
+                src[k] = src[k].gather(1, parent)
             write(out, (idx[:, :L] & 1).bool()[..., None].expand(
                 B, L, N >> l))
     u = ppolar.polar_transform(read(n + 1).to(torch.int32))
@@ -281,6 +291,60 @@ def test_cpu_tensors_take_the_walk(monkeypatch):
     assert build.LAUNCHES["scl_decode"] == before
 
 
+@pytest.mark.parametrize("L", [1024, 1025, 65536])
+def test_off_cpu_routing_by_list_size(monkeypatch, L):
+    """A tensor off the CPU (a meta tensor stands in for one on the card)
+    decodes through the kernel at every list size its 16-bit path maps
+    hold, and never through the walk; past them the wrapper refuses, with
+    no fallback."""
+    spec = ppolar.polar_spec()
+    calls = []
+    real = pscl.scl_decode_kernel
+    monkeypatch.setattr(pscl, "scl_decode_kernel",
+                        lambda llr, s, n: calls.append(("kernel", n)))
+    monkeypatch.setattr(pscl, "_walk_decode",
+                        lambda llr, s, n, **kw: calls.append(("walk", n)))
+    x = torch.zeros(2, spec.N, device="meta")
+    pscl.scl_decode(x, spec, L)
+    assert calls == [("kernel", L)]
+    monkeypatch.setattr(pscl, "scl_decode_kernel", real)
+    with pytest.raises(ValueError, match="list size"):
+        pscl.scl_decode(x, spec, pscl.MAX_LIST + 1)
+    assert calls == [("kernel", L)]
+
+
+def test_kernel_tables_hold_the_crc():
+    """The kernel's per-position CRC table: XOR over a codeword's set bits
+    gives a word whose two bytes agree exactly when the CRC-8 passes."""
+    spec = ppolar.polar_spec()
+    info_pos, tab = pscl.kernel_tables(spec, torch.device("cpu"))
+    assert info_pos.dtype == tab.dtype == torch.int16
+    np.testing.assert_array_equal(info_pos.numpy(),
+                                  spec.data_pos[:spec.info_len])
+    rng = np.random.default_rng(4)
+    u = np.zeros((6, spec.N), np.uint8)
+    for i in range(6):
+        data = np.unpackbits(np.frombuffer(rng.bytes(spec.info_len // 8),
+                                           np.uint8))
+        if i < 3:
+            data = np.concatenate([data, _crc_bits(data, spec)])
+        else:
+            data = np.concatenate([data, rng.integers(0, 2, 8)])
+        u[i, spec.data_pos] = data
+    words = np.bitwise_xor.reduce(
+        np.where(u.astype(bool), tab.numpy().view(np.uint16), 0), axis=1)
+    want = ppolar.crc8_check_batch(
+        torch.from_numpy(u[:, spec.data_pos[:spec.info_len]]).int(),
+        torch.from_numpy(u[:, spec.data_pos[spec.info_len:]]).int(),
+        torch.from_numpy(spec.crc_mat).float()).numpy()
+    np.testing.assert_array_equal((words & 0xff) == (words >> 8), want)
+    assert want[:3].all()
+
+
+def _crc_bits(data, spec):
+    return (data.astype(np.int64) @ spec.crc_mat.astype(np.int64)) % 2
+
+
 def _wide_spec(N):
     """A CRC-8 spec of length ``N`` (any frozen set will do for a refusal)."""
     frozen = np.ones(N, dtype=bool)
@@ -291,7 +355,7 @@ def _wide_spec(N):
 
 
 @pytest.mark.parametrize("N,shape,L,match", [
-    (1024, (2, 1024), 0, "list size"), (1024, (2, 1024), 257, "list size"),
+    (1024, (2, 1024), 0, "list size"), (1024, (2, 1024), 65537, "list size"),
     (1024, (2, 512), 8, "shape"), (1024, (1024,), 8, "shape"),
     (2048, (2, 2048), 8, "shape"), (1024, (2, 1024), 8, "CUDA")])
 def test_kernel_wrapper_refuses(N, shape, L, match):
