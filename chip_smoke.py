@@ -32,7 +32,16 @@ line):
    path for path except beside a near-equal metric (ties, counted); the
    kernel's and the walk's times, the bound (bytes, fp32 and exp/log1p
    operations) and the dependency floor (forks x one measured fork
-   round);
+   round); (d) ``scl_serving``, the same kernel's fast-SSCL instantiation,
+   against the eager serving walk it replaces on the card
+   (``scl._walk_decode(serving=True)``) at the serving ladder's rungs (v2
+   1024 and 321 rows at L = 8, 107 at L = 32), compat 128 rows at L = 256
+   and 32 at L = 32, v2 321 rows at ``block_seg`` 8 and compat 128 at
+   L = 32 with ``block_seg`` 64 (nodes of 128 leaves), on the same kind of
+   rows and under the same contract; its time, the walk's and the exact
+   kernel's at the same shape in turns, the bound (bytes and fp32
+   operations; no exp or log1p) and the floor (forks x one fork round of
+   the serving kernel);
 4. compat main path at full width: a 4096-frame stream from the port's
    host TX (every random byte drawn from ``SEED``), B = 1024 clips of 3 s
    at 48 kHz cut at frame-aligned random starts,
@@ -150,16 +159,21 @@ line):
     ``DRYRUN_OK ... recovered=1``.
 26. the fast-SSCL serving decoder (phases 1-25 run the exact one, the
     ``ECHOSEAL_SCL_*`` switches unset; each leg here sets its switch in
-    ``scl_env``, which restores the environment): (a) 256 rows per spec
+    ``scl_env``, which restores the environment).  Every serving leg must
+    launch ``scl_serving``, never ``scl_decode``, and run no eager walk on
+    the card (``no_card_walk``); every exact leg must launch no
+    ``scl_serving``: (a) 256 rows per spec
     at sigma 0.35 at L = 8 and 32, and phase 10's 128 compat rows at
     L = 256, exact and serving in turns (exact, serving, serving, exact,
-    exact, serving), decodes/s of each (best run), the aten ops one
-    decode dispatches and the first-CRC-pass FER, the serving FER at most
+    exact, serving), each decode one launch, decodes/s of each (best run),
+    the aten ops one decode dispatches and the first-CRC-pass FER, the
+    serving FER at most
     the exact FER plus ``benchmarks/scl_sweep.py``'s binomial slack, and
     8 rows per (spec, L) with the CRC-passing sets of the CPU's serving
     decode; (b) phase 9's 1024 clips through ``verify_batch`` with
-    ``ECHOSEAL_SCL_SERVING`` unset and ``"1"`` in turns: both accepts, the
-    clips rescued by ``"scl"`` and the rungs of each run; the serving
+    ``ECHOSEAL_SCL_SERVING`` unset and ``"1"`` in turns: both accepts and
+    seconds, the clips rescued by ``"scl"`` and the rungs of each run (one
+    ``scl_serving`` launch per serving rung); the serving
     accept at least the hard accept and the exact accept less the slack,
     the first 16 verdicts equal to the CPU's serving ladder, and every clip
     rejected under a wrong key; (c) phase 14's batch through
@@ -185,14 +199,17 @@ runs of phases 7, 9, 10, 14, 16, 17 and 20-22 add theirs to a path
 (``SCL_BY_PATH``), and the ladder (9), SCL-256 (10), recovery (14), the
 rejected compat clips (16), the v2 noise clip's SCL pass (17) and the
 failing impaired v2 rows (20-21) must each have launched it; phase 26's
-serving legs must launch it never, its exact legs count theirs.
+serving legs must launch it never, its exact legs count theirs.  Every
+serving decode on the card is one launch of ``scl_serving``: phase 26's
+decoder, ladder, recovery and single-clip legs add theirs to a path
+(``SERVING_BY_PATH``), and each must have launched it.
 
 Before the last line it prints ``{"kernels": [...]}``: each kernel at the
-v2 path's shape (``scl_decode`` at the ladder's first rung), with its
-launches counted over every main path (each path driven with the counts
-set to 0 just before it): ``payload_decode`` on every main path, which
-launches ``payload_llr`` no more, ``payload_llr`` in phase 23's
-diagnostics and ``scl_decode`` by path.  The last line is
+v2 path's shape (``scl_decode`` and ``scl_serving`` at the ladder's first
+rung), with its launches counted over every main path (each path driven
+with the counts set to 0 just before it): ``payload_decode`` on every main
+path, which launches ``payload_llr`` no more, ``payload_llr`` in phase
+23's diagnostics, ``scl_decode`` and ``scl_serving`` by path.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 from __future__ import annotations
@@ -263,10 +280,20 @@ SCL_SHAPES = (("compat", 128, 256, 0.3), ("compat", 32, 256, 0.35),
               ("v2", 321, 8, 0.35), ("v2", 107, 32, 0.35),
               ("compat", 32, 512, 0.35))
 SCL_TOL = 1e-4
+# phase 3d's shapes (spec, rows, L, block_seg): the serving ladder's rungs
+# (1024 and 321 rows at L = 8, 107 at L = 32), a compat single clip's
+# batches at L = 256 and 32, 16-leaf nodes and 64-leaf ones
+SERVING_SHAPES = (("v2", 1024, 8, 16), ("v2", 321, 8, 16),
+                  ("v2", 107, 32, 16), ("compat", 128, 256, 16),
+                  ("compat", 32, 32, 16), ("v2", 321, 8, 8),
+                  ("compat", 128, 32, 64))
 # paths whose run must have launched scl_decode
 SCL_PATHS = ("scl_ladder", "scl256", "timescale_recover",
              "compat_single_rejected", "v2_single_noise", "impaired_v2_tone",
              "impaired_v2_speech")
+# phase 26's serving paths, each of which must have launched scl_serving
+SERVING_PATHS = ("serving_decoder", "serving_ladder", "serving_recover",
+                 "serving_single")
 BUSY_US = 200.0               # phase 3: card kept busy this long per launch
 N_SUB = 128                   # reverb and speech time-scale sub-batches
 N_L3 = 32                     # speech host through the real Layer III codec
@@ -317,6 +344,43 @@ def scl_launches(path: str, launches) -> int:
     n = launches.get("scl_decode", 0)
     SCL_BY_PATH[path] = SCL_BY_PATH.get(path, 0) + n
     return n
+
+
+# path -> scl_serving launches of its runs (phase 26's serving legs)
+SERVING_BY_PATH: dict[str, int] = {}
+
+
+def serving_launches(path: str, launches, least: int = 1) -> int:
+    """Add one serving run's scl_serving launches (its counts from 0) to
+    ``path``, after checking that it launched the exact kernel never and
+    the serving kernel at least ``least`` times."""
+    n = launches.get("scl_serving", 0)
+    check(launches.get("scl_decode", 0) == 0 and n >= least,
+          f"serving run on {path}: {dict(launches)}")
+    SERVING_BY_PATH[path] = SERVING_BY_PATH.get(path, 0) + n
+    return n
+
+
+@contextlib.contextmanager
+def no_card_walk():
+    """Fail if a list decode of a card tensor takes the eager walk inside
+    the block: on the card every decode, exact or serving, is one kernel
+    launch."""
+    from echoseal_torch.ops import scl
+
+    real, seen = scl._walk_decode, []
+
+    def spy(llr, *args, **kwargs):
+        if llr.device.type != "cpu":
+            seen.append(tuple(llr.shape))
+        return real(llr, *args, **kwargs)
+
+    scl._walk_decode = spy
+    try:
+        yield
+    finally:
+        scl._walk_decode = real
+    check(not seen, f"the eager walk ran on the card: {seen}")
 
 
 def busy_cycles(torch, us: float = BUSY_US) -> tuple[int, float]:
@@ -644,7 +708,7 @@ def _scl_work(scl, spec, rows: int, L: int) -> dict:
              for c, w in ((scl.OP_F, half), (scl.OP_G, half),
                           (scl.OP_RATE0, width), (scl.OP_LEAF, 1),
                           (scl.OP_REP, width))}
-    forks = int(np.isin(code, (scl.OP_LEAF, scl.OP_REP)).sum())
+    forks = scl.schedule_forks(ops, spec.N, L)
     transc = 4 * elems[scl.OP_F] + 2 * (elems[scl.OP_RATE0]
                                         + elems[scl.OP_LEAF]
                                         + elems[scl.OP_REP])
@@ -657,10 +721,11 @@ def _scl_work(scl, spec, rows: int, L: int) -> dict:
 
 
 def _fork_round_ms(torch, scl, spec, L: int, busy: int,
-                   k: int = 512) -> float:
+                   k: int = 512, block_seg: int | None = None) -> float:
     """One fork round of the kernel at list size L: a row decoded along a
     schedule of the f chain to one leaf and then k leaf forks, less the
-    same schedule with no forks, over k."""
+    same schedule with no forks, over k; with ``block_seg``, in the serving
+    kernel."""
     n = spec.N.bit_length() - 1
     x = torch.zeros(1, spec.N, device="cuda")
     head = [scl._op(scl.OP_F, lv, 0) for lv in range(n)]
@@ -668,8 +733,13 @@ def _fork_round_ms(torch, scl, spec, L: int, busy: int,
     for m in (0, k):
         ops = torch.tensor(head + [scl._op(scl.OP_LEAF, n, 0)] * m,
                            dtype=torch.int32, device="cuda")
-        t[m] = cuda_ms(lambda: scl.scl_decode_kernel(x, spec, L, ops=ops),
-                       torch, n=10, busy=busy)
+        if block_seg is None:
+            def run():
+                scl.scl_decode_kernel(x, spec, L, ops=ops)
+        else:
+            def run():
+                scl.scl_decode_serving_kernel(x, spec, L, block_seg, ops=ops)
+        t[m] = cuda_ms(run, torch, n=10, busy=busy)
     return (t[k] - t[0]) / k
 
 
@@ -759,6 +829,123 @@ def scl_kernel_phase(torch, flush, busy):
                                         "bound_by", "library_ms",
                                         "floor_ms")},
                 "shape": {"spec": name, "rows": rows, "L": L}}
+        del x
+    return worst, entry
+
+
+def _serving_work(scl, spec, rows: int, L: int, block_seg: int) -> dict:
+    """One serving decode's work, counted from its node schedule: fp32
+    operations and the bytes in (the LLRs) and out (info bits, crc_ok,
+    metrics).  Per element: a min-sum f 3 (two |.| and a min; the sign is
+    a select), g 1, a rate-0 node's relu and sum 2, a repetition node's
+    |.| and two sums 3, a leaf's |.| 1; a fork adds two candidates, an SPC
+    node's fork one more.  The ranks, selects and partial sums are integer
+    work, and there is no exp or log1p (the SFUs are idle)."""
+    ops = scl.serving_schedule(spec, block_seg)
+    code, width = ops & 15, spec.N >> ((ops >> 4) & 15)
+    elems = {c: int(np.sum(np.where(code == c, w, 0)))
+             for c, w in ((scl.OP_F, width // 2), (scl.OP_G, width // 2),
+                          (scl.OP_RATE0, width), (scl.OP_LEAF, 1),
+                          (scl.OP_REP, width))}
+    forks = scl.schedule_forks(ops, spec.N, L)
+    spc = int(np.minimum(L - 1, width[code == scl.OP_SPC] - 1).sum())
+    fp32 = (3 * elems[scl.OP_F] + elems[scl.OP_G] + 2 * elems[scl.OP_RATE0]
+            + elems[scl.OP_LEAF] + 3 * elems[scl.OP_REP] + 2 * forks + spc)
+    return {"fp32": rows * L * fp32,
+            "bytes": rows * (4 * spec.N + L * (4 * spec.info_len + 5)),
+            "forks": forks, "ops": int(ops.size)}
+
+
+def serving_kernel_phase(torch, flush, busy):
+    """Phase 3d: the serving kernel against its plain version, the eager
+    serving walk ``scl._walk_decode(serving=True)``, at every serving
+    path's shape (``SERVING_SHAPES``), on phase 3c's kind of rows (AWGN at
+    ``SERVING_SIGMA``, then a noiseless codeword and an all-zero row).
+
+    The contract is phase 3c's (``scl.list_agreement``).  Device times in
+    turns with the busy harness: the serving kernel (``ms``), the walk
+    (``plain_ms``) and the exact kernel at the same shape (``exact_ms``).
+    ``bound_ms``, the larger of the bytes over HBM and the fp32 operations
+    over the fp32 peak (``_serving_work``); ``floor_ms``, the schedule's
+    forks times one fork round of the serving kernel at this L
+    (``_fork_round_ms``).  Returns (the largest metric difference, the
+    ladder's first-rung ``kernels`` entry).
+    """
+    from echoseal_torch.core.profiles import ROBUST, profile_spec
+    from echoseal_torch.ops import polar, scl
+
+    specs = {"compat": polar.polar_spec(), "v2": profile_spec(ROBUST)}
+    rng = np.random.default_rng(SEED + 14)
+    fork_ms, entry, worst = {}, None, 0.0
+    for name, rows, L, block_seg in SERVING_SHAPES:
+        spec = specs[name]
+        _, llr_np = _coded_rows(spec, rows, SERVING_SIGMA, rng)
+        llr_np[-2] = np.clip(_coded_rows(spec, 1, 1e-3, rng)[1][0], -16, 16)
+        llr_np[-1] = 0.0
+        x = torch.from_numpy(llr_np).cuda()
+        got = scl.scl_decode_serving_kernel(x, spec, L, block_seg)
+        want = scl._walk_decode(x, spec, L, serving=True, block_seg=block_seg)
+        torch.cuda.synchronize()
+        agree = scl.list_agreement(got, want, SCL_TOL)
+        check(agree["holds"] and bool(got["crc_ok"][-2, 0]),
+              f"scl_serving {name} at {rows} rows, L = {L}, block_seg "
+              f"{block_seg}: {agree}, noiseless row passes "
+              f"{bool(got['crc_ok'][-2, 0])}")
+        worst = max(worst, agree["max_metric_err"])
+        del got, want
+        if L not in fork_ms:
+            fork_ms[L] = _fork_round_ms(torch, scl, spec, L, busy,
+                                        block_seg=block_seg)
+
+        def kernel():
+            scl.scl_decode_serving_kernel(x, spec, L, block_seg)
+
+        def plain():
+            scl._walk_decode(x, spec, L, serving=True, block_seg=block_seg)
+
+        def exact():
+            scl.scl_decode_kernel(x, spec, L)
+
+        turns = {"ms": [], "plain_ms": [], "exact_ms": []}
+        for key, fn, n in (("ms", kernel, 10), ("plain_ms", plain, 2),
+                           ("exact_ms", exact, 10), ("exact_ms", exact, 10),
+                           ("plain_ms", plain, 2), ("ms", kernel, 10)):
+            turns[key].append(cuda_ms(fn, torch, n=n, flush=flush,
+                                      busy=busy))
+        work = _serving_work(scl, spec, rows, L, block_seg)
+        t = {"bytes": work["bytes"] / HBM_BYTES_PER_S * 1e3,
+             "fp32": work["fp32"] / FP32_FLOP_PER_S * 1e3}
+        line = {"phase": "kernel_check", "name": "scl_serving", "spec": name,
+                "rows": rows, "L": L, "block_seg": block_seg,
+                "sigma": SERVING_SIGMA, **agree,
+                "ms": statistics.mean(turns["ms"]),
+                "plain_ms": statistics.mean(turns["plain_ms"]),
+                "exact_ms": statistics.mean(turns["exact_ms"]),
+                "turns_ms": turns, "bound_ms": max(t.values()),
+                "bound_by": "bytes" if t["bytes"] >= t["fp32"]
+                else "operations", "bound_parts_ms": t,
+                "fp32_ops": work["fp32"], "bytes": work["bytes"],
+                "ops": work["ops"], "forks": work["forks"],
+                "fork_round_us": 1e3 * fork_ms[L],
+                "floor_ms": work["forks"] * fork_ms[L], "library_ms": None,
+                "launch_host_us": host_us(kernel, torch),
+                "plan": scl.kernel_plan(spec.N, L, rows, block_seg, spec)}
+        line["decodes_per_s"] = rows / (line["ms"] / 1e3)
+        line["exact_over_serving"] = line["exact_ms"] / line["ms"]
+        emit(line)
+        if (name, rows, L, block_seg) == ("v2", 1024, 8, 16):
+            entry = {
+                "name": "scl_serving", "route": "cuda",
+                "source": "echoseal_torch/csrc/scl_decode.cu",
+                "replaces": "echoseal_tpu/ops/scl.py:871 (_scl_decode_unrolled"
+                            "(serving=True), a jitted XLA program, not a "
+                            "Pallas kernel)",
+                "launches": None, "max_abs_err": None,
+                **{k: line[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "floor_ms", "exact_ms")},
+                "shape": {"spec": name, "rows": rows, "L": L,
+                          "block_seg": block_seg}}
         del x
     return worst, entry
 
@@ -2696,12 +2883,18 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
         llr = torch.from_numpy(llr_np).cuda()
         best, res = {}, {}
         for mode in TURNS:
-            with scl_env(IMPL="serving" if mode == "serving" else None):
+            with scl_env(IMPL="serving" if mode == "serving" else None), \
+                    no_card_walk():
+                build.LAUNCHES.clear()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 r = scl.scl_decode(llr, spec, L)
                 r["crc_ok"].cpu()
                 dt = time.perf_counter() - t0
+                if mode == "serving":
+                    serving_launches("serving_decoder", build.LAUNCHES)
+                check(sum(build.LAUNCHES.values()) == 1,
+                      f"{mode} decode: {dict(build.LAUNCHES)}")
             best[mode] = min(best.get(mode, dt), dt)
             res[mode] = r
         n = llr.shape[0]
@@ -2741,7 +2934,8 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
     runs = {"exact": [], "serving": []}
     launches_ladder = 0
     for mode in ("exact", "serving", "serving", "exact"):
-        with scl_env(SERVING="1" if mode == "serving" else None, IMPL=None):
+        with scl_env(SERVING="1" if mode == "serving" else None, IMPL=None), \
+                no_card_walk():
             build.LAUNCHES.clear()
             details = {}
             torch.cuda.synchronize()
@@ -2750,9 +2944,13 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
             dt = time.perf_counter() - t0
             if mode == "serving":
                 launches_ladder += decode_launches(build.LAUNCHES)
-                check(build.LAUNCHES.get("scl_decode", 0) == 0,
-                      "the serving ladder launched the exact kernel")
+                check(serving_launches("serving_ladder", build.LAUNCHES)
+                      == len(rv.scl_rungs),
+                      f"serving ladder: {dict(build.LAUNCHES)} for "
+                      f"{len(rv.scl_rungs)} rungs")
             else:
+                check(build.LAUNCHES.get("scl_serving", 0) == 0,
+                      "the exact ladder launched the serving kernel")
                 scl_launches("serving_phase_exact_ladder", build.LAUNCHES)
         runs[mode].append({
             "accept": float(v.mean()), "seconds": dt,
@@ -2793,15 +2991,14 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
     # ---- (c) recovery -----------------------------------------------------
     scaled_np, nvs, exact_line = recover_batch
     scaled = torch.from_numpy(scaled_np).cuda()
-    with scl_env(SERVING="1", IMPL=None):
+    with scl_env(SERVING="1", IMPL=None), no_card_walk():
         build.LAUNCHES.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rec = rv.verify_batch_recover(scaled, nvs)
         rec_s = time.perf_counter() - t0
         launches_rec = decode_launches(build.LAUNCHES)
-        check(build.LAUNCHES.get("scl_decode", 0) == 0,
-              "the serving recovery launched the exact kernel")
+        serving_launches("serving_recover", build.LAUNCHES)
     log = rv.recover_log
     del scaled
     rec_accept = float(rec.mean())
@@ -2833,28 +3030,30 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
         # the rejected clip in turns, each on a fresh verifier
         for mode in TURNS[:4]:
             with scl_env(IMPL="serving" if mode == "serving" else None,
-                         SERVING=None):
+                         SERVING=None), no_card_walk():
                 det = make()
                 Timer.registry.clear()
                 build.LAUNCHES.clear()
                 r, dt = _timed(lambda: det.verify_detailed(noise, FS), torch)
                 if mode == "serving":
                     launches_single += decode_launches(build.LAUNCHES)
-                    check(build.LAUNCHES.get("scl_decode", 0) == 0,
-                          f"serving {tier} clip launched the exact kernel")
+                    serving_launches("serving_single", build.LAUNCHES)
                 else:
+                    check(build.LAUNCHES.get("scl_serving", 0) == 0,
+                          f"exact {tier} clip launched the serving kernel")
                     scl_launches("serving_phase_exact_single",
                                  build.LAUNCHES)
             scl_s = _timer_totals(Timer).get(span, {}).get("total_s", 0.0)
             check(not r.authentic, f"{mode} {tier} noise clip accepted: {r}")
             check(scl_s > 0, f"{mode} {tier} noise clip ran no SCL pass")
             out["noise"][mode].append({"seconds": dt, "scl_s": scl_s})
-        with scl_env(IMPL="serving", SERVING=None):
+        with scl_env(IMPL="serving", SERVING=None), no_card_walk():
             det = make()
             build.LAUNCHES.clear()
             r, dt = _timed(lambda: det.verify_detailed(
                 stream[s0:s0 + T35], FS), torch)
             launches_single += decode_launches(build.LAUNCHES)
+            serving_launches("serving_single", build.LAUNCHES, least=0)
         check(r.authentic, f"serving {tier} cut at {s0} rejected: {r}")
         out["cut"] = {"authentic": True, "stage": r.stage, "seconds": dt}
         single[tier] = out
@@ -2903,6 +3102,7 @@ def main() -> None:
     llr_err, llr_entry = kernel_phase(torch, llr, flush, busy, mhz)
     decode_err, decode_entry = decode_kernel_phase(torch, llr, flush, busy)
     scl_err, scl_entry = scl_kernel_phase(torch, flush, busy)
+    serving_err, serving_entry = serving_kernel_phase(torch, flush, busy)
     del flush
 
     by_path = {}
@@ -2935,14 +3135,18 @@ def main() -> None:
     for path in SCL_PATHS:
         check(SCL_BY_PATH.get(path, 0) > 0,
               f"scl_decode never launched on {path}: {SCL_BY_PATH}")
+    for path in SERVING_PATHS:
+        check(SERVING_BY_PATH.get(path, 0) > 0,
+              f"scl_serving never launched on {path}: {SERVING_BY_PATH}")
     for entry, paths, err in ((decode_entry, by_path, decode_err),
                               (llr_entry, llr_by_path, llr_err),
-                              (scl_entry, SCL_BY_PATH, scl_err)):
+                              (scl_entry, SCL_BY_PATH, scl_err),
+                              (serving_entry, SERVING_BY_PATH, serving_err)):
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
         entry["max_abs_err"] = err
-    print(json.dumps({"kernels": [decode_entry, llr_entry, scl_entry]}),
-          flush=True)
+    print(json.dumps({"kernels": [decode_entry, llr_entry, scl_entry,
+                                  serving_entry]}), flush=True)
 
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -30,13 +30,16 @@ disagrees)``, final lists sorted by a stable ascending sort of the
 metric.  Every op of the walk is eager, so a decode issues some 10**4
 small kernels: it is correct and launch-bound.
 
-The exact walk is the plain version (``_scl_decode_plain``) of the
-hand-written kernel ``csrc/scl_decode.cu``, the port's counterpart of the
-JAX package's one-program ``_scl_decode_unrolled``: on a CUDA tensor every
-exact decode is one launch of it (``scl_decode_kernel``), which follows the
-walk's node sequence, built once per spec on the host (``node_schedule``),
-and raises outside its domain (1 <= L <= 65536, N <= 1024, CRC-8); CPU
-tensors take the walk.
+The walk is the plain version of the hand-written kernel
+``csrc/scl_decode.cu``, the port's counterpart of the JAX package's
+one-program ``_scl_decode_unrolled``: on a CUDA tensor every decode is one
+launch of it, the exact one (``scl_decode_kernel``, the plain version
+``_scl_decode_plain``) along ``node_schedule(spec)`` and the serving one
+(``scl_decode_serving_kernel``, the plain version
+``_walk_decode(serving=True)``) along ``serving_schedule(spec,
+block_seg)``, each the walk's node sequence built once on the host; the
+kernel raises outside its domain (1 <= L <= 65536, N <= 1024, CRC-8,
+``block_seg`` >= 1).  CPU tensors take the walk.
 
 Serving mode (fast-SSCL, Hashemi et al., "Fast and Flexible
 Successive-Cancellation List Decoders", IEEE TSP 2017) is another
@@ -44,9 +47,10 @@ algorithm, not a faster route to the same lists: min-sum f-combines and
 the hard path metric everywhere, and inside subtrees of at most
 ``N >> hp`` leaves (``hp`` from ``block_seg`` as in the JAX package)
 rate-1 and single-parity-check (SPC) nodes fork only on their
-``min(L-1, .)`` least reliable bits.  Such a node's forks write no
-decision column; its span's bits are written after it, as the GF(2)
-polar transform of its codeword.  ``ECHOSEAL_SCL_IMPL``,
+``min(L-1, .)`` least reliable bits.  In the walk such a node's forks
+write no decision column; its span's bits are written after it, as the
+GF(2) polar transform of its codeword (the kernel tracks no decisions:
+u = x G of the root's partial sums gives them all).  ``ECHOSEAL_SCL_IMPL``,
 ``ECHOSEAL_SCL_SERVING`` and ``ECHOSEAL_SCL_BLOCK_SEG`` choose between the
 two at call time (``scl_decode``, ``scl_decode_serving``).
 """
@@ -72,8 +76,9 @@ IMPLS = ("serving", "unrolled", "blocked", "lazy", "dense")
 BLOCK_SEG = 16
 MAX_LIST = 1 << 16            # the kernel's index maps are 16-bit
 MAX_LEVELS = 10                # N <= 1024
-# scl_decode.cu's op codes: word = code | level << 4 | side << 8
-OP_F, OP_G, OP_RATE0, OP_LEAF, OP_REP, OP_COMB = range(6)
+# scl_decode.cu's op codes: word = code | level << 4 | side << 8; the last
+# two are the serving schedule's node ops
+OP_F, OP_G, OP_RATE0, OP_LEAF, OP_REP, OP_COMB, OP_RATE1, OP_SPC = range(8)
 
 
 @lru_cache(maxsize=None)
@@ -404,16 +409,18 @@ def _scl_decode_plain(llr: torch.Tensor, spec: PolarSpec, list_size: int):
 
 def _scl_decode(llr: torch.Tensor, spec: PolarSpec, list_size: int, *,
                 serving: bool = False, block_seg: int = BLOCK_SEG):
-    """One list decode.  The exact one is the kernel on a CUDA tensor and
-    the eager walk on a CPU tensor; the serving one is the eager walk on
-    both.  A CUDA tensor's exact decode outside the kernel's domain raises
-    (``scl_decode_kernel``)."""
-    if serving or llr.device.type == "cpu":
+    """One list decode: on a CPU tensor the eager walk, on any other one
+    launch of the kernel (``scl_decode_kernel``, or
+    ``scl_decode_serving_kernel`` for the serving decoder), which raises
+    outside its domain."""
+    if llr.device.type == "cpu":
         return _walk_decode(llr, spec, list_size, serving=serving,
                             block_seg=block_seg)
     _check_input(llr, spec)
-    return scl_decode_kernel(llr.to(torch.float32).contiguous(), spec,
-                             list_size)
+    x = llr.to(torch.float32).contiguous()
+    if serving:
+        return scl_decode_serving_kernel(x, spec, list_size, block_seg)
+    return scl_decode_kernel(x, spec, list_size)
 
 
 # ------------------------------------------------------------- the kernel
@@ -433,6 +440,27 @@ def node_schedule(spec: PolarSpec) -> np.ndarray:
     is the node's own side (its parent's left or right child), which
     names the partial-sum slot its result goes to.
     """
+    return _walk_schedule(spec, None)
+
+
+@lru_cache(maxsize=32)
+def serving_schedule(spec: PolarSpec, block_seg: int) -> np.ndarray:
+    """The serving walk's node sequence for ``spec`` at ``block_seg``, as
+    ``node_schedule``'s op words.
+
+    The order of ``_ListDecoder.walk`` with ``serving=True``: rate-0, leaf
+    and repetition nodes as in ``node_schedule``; at levels from
+    ``_node_level(n, block_seg)`` on, a node with no frozen leaf is one
+    ``OP_RATE1`` op and one whose only frozen leaf is its first is one
+    ``OP_SPC`` op; f, g and the combine around every other node.
+    """
+    n = spec.N.bit_length() - 1
+    return _walk_schedule(spec, _node_level(n, int(block_seg)))
+
+
+def _walk_schedule(spec: PolarSpec, level0: int | None) -> np.ndarray:
+    """The walk's op words; rate-1 and SPC node ops from ``level0`` on
+    (none when it is None)."""
     frozen = np.asarray(spec.frozen, dtype=bool)
     N = frozen.size
     n = N.bit_length() - 1
@@ -442,12 +470,17 @@ def node_schedule(spec: PolarSpec) -> np.ndarray:
         seg = N >> l
         fr = frozen[pos:pos + seg]
         side = (pos >> (n - l)) & 1
+        node = level0 is not None and l >= level0
         if fr.all():
             ops.append(_op(OP_RATE0, l, side))
         elif seg == 1:
             ops.append(_op(OP_LEAF, l, side))
         elif fr[:-1].all():
             ops.append(_op(OP_REP, l, side))
+        elif node and not fr.any():
+            ops.append(_op(OP_RATE1, l, side))
+        elif node and fr[0] and not fr[1:].any():
+            ops.append(_op(OP_SPC, l, side))
         else:
             ops.append(_op(OP_F, l, 0))
             walk(l + 1, pos)
@@ -459,10 +492,38 @@ def node_schedule(spec: PolarSpec) -> np.ndarray:
     return np.asarray(ops, dtype=np.int32)
 
 
+def schedule_forks(ops: np.ndarray, N: int, list_size: int) -> int:
+    """Forks a decode at list size L makes along op words ``ops``: one per
+    leaf or repetition node, ``min(L-1, w)`` per rate-1 node of w leaves,
+    ``min(L-1, w-1)`` per SPC node."""
+    L = int(list_size)
+    code, w = ops & 15, N >> ((ops >> 4) & 15)
+    return int(np.isin(code, (OP_LEAF, OP_REP)).sum()
+               + np.minimum(L - 1, w[code == OP_RATE1]).sum()
+               + np.minimum(L - 1, w[code == OP_SPC] - 1).sum())
+
+
+def _node_span(ops: np.ndarray, N: int) -> int:
+    """The widest rate-1 or SPC node's leaves in ``ops`` (1 with none)."""
+    code = ops & 15
+    node = (code == OP_RATE1) | (code == OP_SPC)
+    return int((N >> ((ops[node] >> 4) & 15)).max()) if node.any() else 1
+
+
+def _schedule(spec: PolarSpec, block_seg: int | None) -> np.ndarray:
+    """``node_schedule(spec)``, or ``serving_schedule(spec, block_seg)``
+    when ``block_seg`` is given."""
+    if block_seg is None:
+        return node_schedule(spec)
+    return serving_schedule(spec, block_seg)
+
+
 @lru_cache(maxsize=32)
-def device_schedule(spec: PolarSpec, device: torch.device) -> torch.Tensor:
-    """``node_schedule(spec)`` on ``device``, uploaded on the first call."""
-    return torch.as_tensor(node_schedule(spec), device=device)
+def device_schedule(spec: PolarSpec, device: torch.device,
+                    block_seg: int | None = None) -> torch.Tensor:
+    """``_schedule(spec, block_seg)`` on ``device``, uploaded on the first
+    call."""
+    return torch.as_tensor(_schedule(spec, block_seg), device=device)
 
 
 @lru_cache(maxsize=32)
@@ -487,18 +548,19 @@ def kernel_tables(spec: PolarSpec,
 def bind(lib: ctypes.CDLL) -> tuple:
     """``scl_decode.cu``'s entry points in ``lib`` (the built kernel, or a
     copy of it such as ``tools/scl_trace.py``'s), typed: (plan, workspace,
-    launch)."""
+    launch).  Each takes ``serving``: 0 for the exact decoder, else the
+    widest rate-1 or SPC node's leaves (``_node_span``)."""
     for name in ("scl_decode_plan", "scl_decode_workspace"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_longlong)]
         fn.restype = ctypes.c_int
     fn = lib.scl_decode_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib.scl_decode_plan, lib.scl_decode_workspace, fn
 
@@ -513,13 +575,19 @@ PLAN_FIELDS = ("threads_per_row", "rows_per_block", "blocks", "sms",
                "slots_in_smem")
 
 
-def kernel_plan(N: int, list_size: int, rows: int) -> dict:
-    """How ``scl_decode_kernel`` lays out a call of ``rows`` rows of length
-    ``N`` at list size L on the current CUDA device (``PLAN_FIELDS``;
-    bytes for the memory), plus the SMs the grid occupies."""
+def kernel_plan(N: int, list_size: int, rows: int,
+                block_seg: int | None = None, spec: PolarSpec | None = None
+                ) -> dict:
+    """How ``scl_decode_kernel`` (or, given ``block_seg`` and ``spec``,
+    ``scl_decode_serving_kernel``) lays out a call of ``rows`` rows of
+    length ``N`` at list size L on the current CUDA device
+    (``PLAN_FIELDS``; bytes for the memory), plus the SMs the grid
+    occupies."""
     plan, _, _ = _kernel()
+    serving = 0 if block_seg is None else \
+        _node_span(_schedule(spec, block_seg), N)
     out = (ctypes.c_longlong * len(PLAN_FIELDS))()
-    rc = plan(N.bit_length() - 1, int(list_size), int(rows), out)
+    rc = plan(N.bit_length() - 1, int(list_size), int(rows), serving, out)
     if rc != 0:
         raise RuntimeError(f"scl_decode kernel plan failed: cudaError {rc}")
     got = dict(zip(PLAN_FIELDS, out))
@@ -527,19 +595,26 @@ def kernel_plan(N: int, list_size: int, rows: int) -> dict:
     return got
 
 
-def _check_ops(ops: torch.Tensor, device: torch.device, n: int) -> None:
-    """Op words the kernel can follow at 2**n leaves: known codes, levels
-    up to n (below n for f, g and a combine, which write level + 1)."""
+def _check_ops(ops: torch.Tensor, device: torch.device, n: int,
+               serving: bool = False) -> int:
+    """Op words the kernel can follow at 2**n leaves: known codes (the
+    rate-1 and SPC node ops only for the serving decoder), levels up to n
+    (below n for f, g and a combine, which write level + 1; from 1 to n - 1
+    for a node op).  Returns the widest node op's leaves (1 with none)."""
+    name = "scl_decode_serving_kernel" if serving else "scl_decode_kernel"
     if ops.device != device or ops.dtype != torch.int32 or \
             not ops.is_contiguous() or ops.ndim != 1:
-        raise ValueError("scl_decode_kernel: ops must be a contiguous int32 "
-                         "vector on the llr's device")
+        raise ValueError(f"{name}: ops must be a contiguous int32 vector on "
+                         "the llr's device")
     words = ops.cpu().numpy()
     code, level = words & 15, (words >> 4) & 15
     inner = np.isin(code, (OP_F, OP_G, OP_COMB))
-    if (words >> 9).any() or (code > OP_COMB).any() or (level > n).any() \
-            or (level[inner] >= n).any():
-        raise ValueError("scl_decode_kernel: op words out of range")
+    node = np.isin(code, (OP_RATE1, OP_SPC))
+    if (words >> 9).any() or (code > (OP_SPC if serving else OP_COMB)).any() \
+            or (level > n).any() or (level[inner] >= n).any() \
+            or (level[node] >= n).any() or (level[node] < 1).any():
+        raise ValueError(f"{name}: op words out of range")
+    return _node_span(words, 1 << n)
 
 
 def scl_decode_kernel(llr: torch.Tensor, spec: PolarSpec, list_size: int,
@@ -555,61 +630,88 @@ def scl_decode_kernel(llr: torch.Tensor, spec: PolarSpec, list_size: int,
     of the source (a diagnostic's instrumented copy).  Anything else raises;
     there is no fallback.  Returns ``scl_decode``'s dict.
     """
+    return _launch(llr, spec, list_size, None, ops, kernel)
+
+
+def scl_decode_serving_kernel(llr: torch.Tensor, spec: PolarSpec,
+                              list_size: int, block_seg: int = BLOCK_SEG,
+                              ops: torch.Tensor | None = None, kernel=None):
+    """The fast-SSCL decode of ``_walk_decode(serving=True)`` in one launch
+    of ``csrc/scl_decode.cu``'s serving instantiation (counted in
+    ``build.LAUNCHES["scl_serving"]``).
+
+    The arguments and the result are ``scl_decode_kernel``'s; the node
+    order is ``serving_schedule(spec, block_seg)`` (``block_seg`` >= 1: its
+    rate-1 and SPC nodes may span up to N / 2 leaves), which ``ops``
+    replaces.  Anything outside the domain raises; there is no fallback.
+    """
+    if isinstance(block_seg, bool) or \
+            not isinstance(block_seg, (int, np.integer)) or block_seg < 1:
+        raise ValueError(f"scl_decode_serving_kernel: block_seg "
+                         f"{block_seg!r}; need an int >= 1")
+    return _launch(llr, spec, list_size, int(block_seg), ops, kernel)
+
+
+def _launch(llr, spec, list_size, block_seg, ops, kernel):
+    """One launch of ``scl_decode.cu``: the exact decoder when
+    ``block_seg`` is None, else the serving one at that ``block_seg``."""
+    serving = block_seg is not None
+    name = "scl_decode_serving_kernel" if serving else "scl_decode_kernel"
     L = int(list_size)
     if not 1 <= L <= MAX_LIST:
-        raise ValueError(f"scl_decode_kernel: list size {L}; need 1 to "
-                         f"{MAX_LIST}")
+        raise ValueError(f"{name}: list size {L}; need 1 to {MAX_LIST}")
     N = spec.N
     n = N.bit_length() - 1
     if llr.ndim != 2 or llr.shape[1] != N or N != 1 << n or \
             not 1 <= n <= MAX_LEVELS:
-        raise ValueError(f"scl_decode_kernel: llr of shape "
-                         f"{tuple(llr.shape)} for N = {N}; need (B, N) with "
-                         f"N a power of two from 2 to {1 << MAX_LEVELS}")
+        raise ValueError(f"{name}: llr of shape {tuple(llr.shape)} for "
+                         f"N = {N}; need (B, N) with N a power of two from 2 "
+                         f"to {1 << MAX_LEVELS}")
     if spec.crc_size != 8:
-        raise ValueError(f"scl_decode_kernel: CRC of {spec.crc_size} bits; "
-                         "need CRC-8")
+        raise ValueError(f"{name}: CRC of {spec.crc_size} bits; need CRC-8")
     if llr.device.type != "cuda":
-        raise ValueError(f"scl_decode_kernel: llr on {llr.device}; need a "
-                         "CUDA device")
+        raise ValueError(f"{name}: llr on {llr.device}; need a CUDA device")
     if llr.dtype != torch.float32 or not llr.is_contiguous():
-        raise ValueError("scl_decode_kernel: llr must be contiguous float32")
+        raise ValueError(f"{name}: llr must be contiguous float32")
     B = llr.shape[0]
     if B >= 2 ** 31:
-        raise ValueError("scl_decode_kernel: more than 2**31 - 1 rows")
+        raise ValueError(f"{name}: more than 2**31 - 1 rows")
     dev = llr.device
     info = torch.empty((B, L, spec.info_len), dtype=torch.int32, device=dev)
     ok = torch.empty((B, L), dtype=torch.bool, device=dev)
     metric = torch.empty((B, L), dtype=torch.float32, device=dev)
     out = {"info_bits": info, "crc_ok": ok, "metrics": metric}
+    if ops is None:
+        ops = device_schedule(spec, dev, block_seg)
+        span = _node_span(_schedule(spec, block_seg), N)
+    else:
+        span = _check_ops(ops, dev, n, serving)
+    mode = span if serving else 0              # the C entry points' serving
     if B == 0:
         return out
-    if ops is None:
-        ops = device_schedule(spec, dev)
-    else:
-        _check_ops(ops, dev, n)
     info_pos, crc_tab = kernel_tables(spec, dev)
     _, workspace, launch = kernel or _kernel()
     with torch.cuda.device(dev):
         need = ctypes.c_longlong(0)
-        rc = workspace(n, L, B, ctypes.byref(need))
+        rc = workspace(n, L, B, mode, ctypes.byref(need))
         if rc != 0:
             raise RuntimeError(f"scl_decode kernel plan failed: cudaError {rc}")
         scratch = torch.empty(need.value, dtype=torch.uint8, device=dev)
-        rc = launch(llr.data_ptr(), B, n, L, ops.data_ptr(), ops.numel(),
-                    info_pos.data_ptr(), crc_tab.data_ptr(),
+        rc = launch(llr.data_ptr(), B, n, L, mode, ops.data_ptr(),
+                    ops.numel(), info_pos.data_ptr(), crc_tab.data_ptr(),
                     spec.info_len, scratch.data_ptr(), need.value,
                     info.data_ptr(), ok.data_ptr(), metric.data_ptr(),
                     torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"scl_decode kernel launch failed: cudaError {rc}")
-    build.LAUNCHES["scl_decode"] += 1
+    build.LAUNCHES["scl_serving" if serving else "scl_decode"] += 1
     return out
 
 
 def list_agreement(got: dict, want: dict, tol: float = 1e-4) -> dict:
-    """How two exact decodes of the same rows agree (the kernel against the
-    walk): the kernel's contract, as counts.
+    """How two decodes of the same rows by the same decoder agree (the
+    kernel, exact or serving, against its walk): the kernel's contract, as
+    counts.
 
     ``sets_equal``: every row's set of CRC-passing payloads is the same;
     ``first_pass_equal``: so are the info bits of each row's first
@@ -660,8 +762,8 @@ def scl_decode(llr: torch.Tensor, spec: PolarSpec, list_size: int):
     """List-decode a batch of LLR vectors on their device.
 
     ``ECHOSEAL_SCL_IMPL``, read at each call, picks the decoder:
-    ``serving`` the fast-SSCL walk (at ``ECHOSEAL_SCL_BLOCK_SEG``, default
-    16); ``unrolled``, ``blocked``, ``lazy`` or ``dense``, or unset, the
+    ``serving`` the fast-SSCL decoder (at ``ECHOSEAL_SCL_BLOCK_SEG``,
+    default 16); ``unrolled``, ``blocked``, ``lazy`` or ``dense``, or unset, the
     exact decoder (the JAX package's four exact formulations give
     identical lists); any other value raises ``ValueError``.
 
@@ -690,7 +792,7 @@ def scl_decode_serving(llr: torch.Tensor, spec: PolarSpec, list_size: int):
 
     ``ECHOSEAL_SCL_IMPL`` wins when it is set (``scl_decode``).  Otherwise
     ``ECHOSEAL_SCL_SERVING`` set to anything but ``""`` or ``"0"`` selects
-    the fast-SSCL walk, and the decode is exact without it.  (The JAX
+    the fast-SSCL decoder, and the decode is exact without it.  (The JAX
     package reads any non-empty value, ``"0"`` included, as on.)
     """
     if os.environ.get("ECHOSEAL_SCL_IMPL") is not None:

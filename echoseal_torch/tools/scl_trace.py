@@ -1,6 +1,6 @@
 """Where a row's time goes inside the SCL kernel, op by op, on one card.
 
-    python3 -m echoseal_torch.tools.scl_trace [SPEC:ROWS:L ...]
+    python3 -m echoseal_torch.tools.scl_trace [SPEC:ROWS:L[:BLOCK_SEG] ...]
 
 Builds a copy of ``csrc/scl_decode.cu`` in which the first thread of the
 first block stamps ``clock64()`` as its first row starts each node op and
@@ -10,7 +10,9 @@ shape: per op code the count, the median and the summed SM cycles; the
 row's total cycles; the forks' share of them; and the stamped kernel's
 CUDA-event ms (the stamps add one store per op).  Row 0 runs beside the
 other rows of its launch, so its cycles include their contention.  SPEC is
-``compat`` or ``v2``.  Needs one CUDA card and nvcc.
+``compat`` or ``v2``; a fourth field runs the serving decoder at that
+``block_seg`` (``serving_schedule``), whose rate-1 and SPC node ops hold
+their own forks (``node_share``).  Needs one CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from echoseal_torch.ops import build, polar, scl
 
 SHAPES = ("compat:128:256", "compat:32:256", "v2:32:32", "v2:1024:8",
           "v2:321:8", "v2:107:32", "compat:32:512")
-NAMES = ("f", "g", "rate0", "leaf", "rep", "comb")
+NAMES = ("f", "g", "rate0", "leaf", "rep", "comb", "rate1", "spc")
 # (a line of the kernel's code, the stamp, whether it goes after the line)
 _STAMP = "if (row == 0 && threadIdx.x == 0) g_stamp[{k}] = clock64();\n"
 ANCHORS = (("      const int op = op_next;\n", _STAMP.format(k="k"), True),
@@ -62,27 +64,38 @@ def _load() -> tuple[ctypes.CDLL, tuple]:
     return dll, scl.bind(dll)
 
 
-def trace(dll, kernel: tuple, name: str, rows: int, L: int) -> dict:
+def trace(dll, kernel: tuple, name: str, rows: int, L: int,
+          block_seg: int | None = None) -> dict:
     """Stamp one decode of ``rows`` random rows of spec ``name`` at list
-    size ``L`` through the wrapper, run on the traced build ``kernel``."""
+    size ``L`` through the wrapper (the serving one at ``block_seg`` if
+    given), run on the traced build ``kernel``."""
     spec = polar.polar_spec() if name == "compat" else profile_spec(ROBUST)
     rng = np.random.default_rng(rows * 1024 + L)
     x = torch.from_numpy(np.clip(4.0 * rng.standard_normal(
         (rows, spec.N)), -16, 16).astype(np.float32)).cuda()
-    scl.scl_decode_kernel(x, spec, L, kernel=kernel)         # warm-up
+    if block_seg is None:
+        def decode():
+            scl.scl_decode_kernel(x, spec, L, kernel=kernel)
+        ops = scl.node_schedule(spec)
+    else:
+        def decode():
+            scl.scl_decode_serving_kernel(x, spec, L, block_seg,
+                                          kernel=kernel)
+        ops = scl.serving_schedule(spec, block_seg)
+    decode()                                                 # warm-up
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
-    scl.scl_decode_kernel(x, spec, L, kernel=kernel)
+    decode()
     b.record()
     torch.cuda.synchronize()
-    ops = scl.node_schedule(spec)
     stamps = np.zeros(ops.size + 1, dtype=np.int64)
     if dll.scl_trace_read(stamps.ctypes.data, stamps.size) != 0:
         raise RuntimeError("scl_trace: reading the stamps failed")
     cycles = np.diff(stamps)
     code = ops & 15
-    out = {"spec": name, "rows": rows, "L": L, "ms": a.elapsed_time(b),
+    out = {"spec": name, "rows": rows, "L": L, "block_seg": block_seg,
+           "ms": a.elapsed_time(b),
            "row_cycles": int(stamps[-1] - stamps[0]), "ops": {}}
     for c, op_name in enumerate(NAMES):
         sel = code == c
@@ -92,6 +105,8 @@ def trace(dll, kernel: tuple, name: str, rows: int, L: int) -> dict:
                                 "cycles": int(cycles[sel].sum())}
     forks = cycles[np.isin(code, (scl.OP_LEAF, scl.OP_REP))].sum()
     out["fork_share"] = float(forks / max(out["row_cycles"], 1))
+    nodes = cycles[np.isin(code, (scl.OP_RATE1, scl.OP_SPC))].sum()
+    out["node_share"] = float(nodes / max(out["row_cycles"], 1))
     return out
 
 
@@ -100,9 +115,9 @@ def main(argv=None) -> None:
         raise SystemExit("scl_trace: needs a CUDA card")
     dll, kernel = _load()
     for shape in (argv if argv else SHAPES):
-        name, rows, L = shape.split(":")
-        print(json.dumps(trace(dll, kernel, name, int(rows), int(L))),
-              flush=True)
+        name, rows, L, *seg = shape.split(":")
+        print(json.dumps(trace(dll, kernel, name, int(rows), int(L),
+                               int(seg[0]) if seg else None)), flush=True)
 
 
 if __name__ == "__main__":

@@ -409,3 +409,109 @@ def test_scl_decode_refusals_on_card():
     empty = scl.scl_decode_kernel(x[:0], spec, 8)
     assert empty["info_bits"].shape == (0, 8, spec.info_len)
     assert build.LAUNCHES["scl_decode"] == before
+
+
+# ------------------------------------------------- SCL serving decoder
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_seg", [8, 16, 64])
+@pytest.mark.parametrize("L", [1, 8, 32, 256])
+@pytest.mark.parametrize("spec_name", list(SCL_SPECS))
+def test_scl_serving_kernel_on_card(spec_name, L, block_seg):
+    """The serving kernel against the eager serving walk on the card, on
+    noisy, noiseless and zero-LLR rows, at 16-, 32- and 128-leaf nodes (the
+    last ranked through memory): the exact kernel's contract
+    (``list_agreement``), one launch per call, none of the exact kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    spec = SCL_SPECS[spec_name]()
+    x = torch.from_numpy(_scl_rows(spec, 8, seed=L + block_seg)).cuda()
+    before = dict(build.LAUNCHES)
+    got = scl.scl_decode_serving_kernel(x, spec, L, block_seg)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["scl_serving"] == before.get("scl_serving", 0) + 1
+    assert build.LAUNCHES["scl_decode"] == before.get("scl_decode", 0)
+    want = scl._walk_decode(x, spec, L, serving=True, block_seg=block_seg)
+    agree = scl.list_agreement(got, want)
+    assert agree["holds"], agree
+    assert got["info_bits"].shape == (8, L, spec.info_len)
+    assert got["crc_ok"][-2, 0] and got["metrics"][-2, 0] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,env", [
+    ("scl_decode", {"IMPL": "serving"}),
+    ("scl_decode", {"IMPL": "serving", "BLOCK_SEG": "8"}),
+    ("scl_decode_serving", {"SERVING": "1"}),
+    ("scl_decode_serving", {"SERVING": "1", "BLOCK_SEG": "64"})])
+def test_scl_serving_routes_on_card(monkeypatch, entry, env):
+    """``ECHOSEAL_SCL_IMPL=serving`` and ``ECHOSEAL_SCL_SERVING`` put a card
+    tensor's decode on one launch of the serving kernel at the switches'
+    ``block_seg``, the same lists as the kernel called directly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for name in ("ECHOSEAL_SCL_IMPL", "ECHOSEAL_SCL_SERVING",
+                 "ECHOSEAL_SCL_BLOCK_SEG"):
+        monkeypatch.delenv(name, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(f"ECHOSEAL_SCL_{k}", v)
+    spec = SCL_SPECS["v2"]()
+    x = torch.from_numpy(_scl_rows(spec, 6, seed=3)).cuda()
+    want = scl.scl_decode_serving_kernel(x, spec, 8,
+                                         int(env.get("BLOCK_SEG", 16)))
+    before = dict(build.LAUNCHES)
+    got = getattr(scl, entry)(x, spec, 8)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["scl_serving"] == before["scl_serving"] + 1
+    assert build.LAUNCHES["scl_decode"] == before.get("scl_decode", 0)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,block_seg", [(1025, 16), (2048, 64)])
+def test_scl_serving_large_lists_on_card(L, block_seg):
+    """Lists past 1024 paths: a thread takes several paths and keys, and at
+    L = 2048 the row's state with the node ops' ranks and masks lives in
+    device scratch.  The contract against the walk holds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    spec = polar.polar_spec()
+    x = torch.from_numpy(_scl_rows(spec, 2, seed=L)).cuda()
+    got = scl.scl_decode_serving_kernel(x, spec, L, block_seg)
+    torch.cuda.synchronize()
+    agree = scl.list_agreement(got, scl._walk_decode(
+        x, spec, L, serving=True, block_seg=block_seg))
+    assert agree["holds"], (L, agree)
+    assert got["crc_ok"][0, 0]                       # the noiseless row
+
+
+@pytest.mark.cuda
+def test_scl_serving_refusals_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    spec = polar.polar_spec()
+    x = torch.from_numpy(_scl_rows(spec, 4)).cuda()
+    before = dict(build.LAUNCHES)
+    for args in ((x.cpu(), spec, 8),                    # not on the card
+                 (x.double(), spec, 8),                 # float64
+                 (x.mT.contiguous().mT, spec, 8),       # column-major
+                 (x[:, :512], spec, 8),                 # width
+                 (x, spec, 0), (x, spec, 65537),        # list size
+                 (x, spec, 8, 0), (x, spec, 8, 2.5)):   # block_seg
+        with pytest.raises(ValueError):
+            scl.scl_decode_serving_kernel(*args)
+    with pytest.raises(ValueError):                     # the ops' device
+        scl.scl_decode_serving_kernel(
+            x, spec, 8, ops=torch.from_numpy(scl.serving_schedule(spec, 16)))
+    for word in (scl._op(scl.OP_RATE1, 0, 0), scl._op(scl.OP_SPC, 10, 0),
+                 scl._op(scl.OP_SPC + 1, 3, 0), -1):    # a level or code
+        with pytest.raises(ValueError, match="out of range"):
+            scl.scl_decode_serving_kernel(x, spec, 8, ops=torch.tensor(
+                [word], dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="out of range"):   # exact: no nodes
+        scl.scl_decode_kernel(x, spec, 8, ops=torch.from_numpy(
+            scl.serving_schedule(spec, 16)).cuda())
+    assert dict(build.LAUNCHES) == before
+    empty = scl.scl_decode_serving_kernel(x[:0], spec, 8)
+    assert empty["info_bits"].shape == (0, 8, spec.info_len)
+    assert dict(build.LAUNCHES) == before

@@ -20,6 +20,7 @@ from echoseal_torch.core import profiles as pprof
 from echoseal_torch.models import detector as PD
 from echoseal_torch.models import pipeline as PP
 from echoseal_torch.models import robust as PR
+from echoseal_torch.ops import build
 from echoseal_torch.ops import polar as ppolar
 from echoseal_torch.ops import scl as pscl
 from echoseal_torch.utils import channels
@@ -83,6 +84,112 @@ def _both(llr, jspec, pspec, L, block_seg=16):
     assert got["info_bits"].dtype == np.int32
     assert got["info_bits"].shape == want["info_bits"].shape
     return got, want
+
+
+def _serving_replay(llr, spec, L, block_seg):
+    """``serving_schedule(spec, block_seg)`` run as scl_decode.cu's serving
+    instantiation runs it, in torch ops.
+
+    Slots, source indices and the forks' live columns are
+    tests/test_torch_scl.py::_replay's.  A rate-1 or SPC node ranks the
+    magnitudes of each of its level's L alpha buffers (stably), gives each
+    path its buffer as its ancestor, then carries per path the ancestor,
+    f0 and a mask of the flipped positions, each gathered by the survivors'
+    parents at every fork, and writes (alpha[ancestor] > 0) ^ mask as its
+    partial sums for every path.  The decisions are u = x G of the root's
+    sums.
+    """
+    B, N = llr.shape
+    n = N.bit_length() - 1
+    rows = torch.arange(B)[:, None]
+    ident = torch.arange(L).expand(B, L)
+    metric = torch.full((B, L), pscl.BIG_METRIC)
+    metric[:, 0] = 0.0
+    zero = torch.zeros((B, L))
+    buf, src = {0: llr[:, None, :].expand(B, L, N)}, {0: ident}
+    right = [False] * n                 # dir: in the right child at level l
+
+    def read(slot):
+        return buf[slot][rows, src[slot]]
+
+    def write(slot, t):
+        buf[slot], src[slot] = t, ident
+
+    def fork(pen0, pen1, l):
+        nonlocal metric
+        cand = torch.stack((metric + pen0, metric + pen1), dim=-1)
+        vals, idx = torch.sort(cand.reshape(B, 2 * L), dim=-1, stable=True)
+        metric, parent = vals[:, :L], idx[:, :L] >> 1
+        for k in [n + 3 + 2 * lv if right[lv] else lv
+                  for lv in range(l) if right[lv] or lv]:
+            src[k] = src[k].gather(1, parent)
+        return (idx[:, :L] & 1).bool(), parent
+
+    for op in pscl.serving_schedule(spec, block_seg).tolist():
+        code, l, side = op & 15, (op >> 4) & 15, (op >> 8) & 1
+        out = n + 1 + 2 * l + side
+        if code in (pscl.OP_F, pscl.OP_G):
+            a = read(l)
+            h = a.shape[-1] // 2
+            right[l] = code == pscl.OP_G
+            write(l + 1, pscl._f_combine_ms(a[..., :h], a[..., h:])
+                  if code == pscl.OP_F else
+                  pscl._g_combine(a[..., :h], a[..., h:], read(n + 3 + 2 * l)))
+        elif code == pscl.OP_COMB:
+            bl, br = read(n + 3 + 2 * l), read(n + 4 + 2 * l)
+            write(out, torch.cat((bl ^ br, br), dim=-1))
+        elif code == pscl.OP_RATE0:
+            metric = metric + torch.relu(read(l)).sum(dim=-1)
+            write(out, torch.zeros((B, L, N >> l), dtype=torch.bool))
+        elif code in (pscl.OP_LEAF, pscl.OP_REP):
+            pen0, pen1 = pscl._penalties_hard(read(l))
+            bits, _ = fork(pen0.sum(dim=-1), pen1.sum(dim=-1), l)
+            write(out, bits[..., None].expand(B, L, N >> l))
+        else:                                   # rate-1 or SPC node
+            spc = code == pscl.OP_SPC
+            a = buf[l]                          # buffer b of every path
+            w = a.shape[-1]
+            mag = a.abs()
+            order = torch.argsort(mag, dim=-1, stable=True)
+            smag = mag.gather(-1, order)
+            anc = src[l]
+            pos = torch.arange(w)
+            mask = torch.zeros((B, L, w), dtype=torch.bool)
+            if spc:
+                f0 = (((a > 0.0).sum(dim=-1) & 1) == 1).gather(1, anc)
+                metric = metric + f0.to(torch.float32) * \
+                    smag[..., 0].gather(1, anc)
+                mask = (pos == order[..., 0].gather(1, anc)[..., None]) \
+                    & f0[..., None]
+            for t in range(1 if spc else 0,
+                           min(L, w) if spc else min(L - 1, w)):
+                pen = smag[..., t].gather(1, anc)
+                if spc:
+                    pen = pen + (1.0 - 2.0 * f0.to(torch.float32)) * \
+                        smag[..., 0].gather(1, anc)
+                bits, parent = fork(zero, pen, l)
+                anc, mask = anc.gather(1, parent), mask[rows, parent]
+                hit = pos == order[..., t].gather(1, anc)[..., None]
+                if spc:
+                    f0 = f0.gather(1, parent) ^ bits
+                    hit ^= pos == order[..., 0].gather(1, anc)[..., None]
+                mask = mask ^ (hit & bits[..., None])
+            write(out, (a[rows, anc] > 0.0) ^ mask)
+    u = ppolar.polar_transform(read(n + 1).to(torch.int32))
+    data = u[..., torch.from_numpy(spec.data_pos)]
+    crc_ok = ppolar.crc8_check_batch(data[..., :spec.info_len],
+                                     data[..., spec.info_len:], spec.crc_mat)
+    order = torch.argsort(metric, dim=-1, stable=True)
+    return {"info_bits": data[..., :spec.info_len][rows, order].numpy(),
+            "crc_ok": crc_ok[rows, order].numpy(),
+            "metrics": metric[rows, order].numpy()}
+
+
+def _mixed_rows(jspec, seed):
+    """Three noisy rows, a noiseless one and an all-zero one."""
+    noisy = _awgn(jspec, 3, 0.45, seed, seed + 1)
+    clean = np.clip(_awgn(jspec, 1, 1e-3, seed + 2, seed + 3), -16.0, 16.0)
+    return np.concatenate([noisy, clean, np.zeros((1, jspec.N), np.float32)])
 
 
 # ------------------------------------------------------------ primitives
@@ -152,6 +259,152 @@ def test_block_seg_8_matches_jax(monkeypatch):
         llr, jspec, 8, 8, serving=True).items()}
     _assert_lists_match(got, want)
     assert pscl._node_level(10, 8) == 6 and pscl._node_level(10, 16) == 5
+
+
+# ------------------------------------------------- the kernel's schedule
+@pytest.mark.parametrize("which,block_seg,ops,forks", [
+    ("compat", 16, 885, {1: 46, 8: 279, 32: 443, 256: 448}),
+    ("compat", 8, 905, {1: 46, 8: 314, 32: 448, 256: 448}),
+    ("v2", 16, 341, {1: 25, 8: 247, 32: 444, 256: 448}),
+    ("v2", 8, 365, {1: 25, 8: 289, 32: 448, 256: 448})])
+def test_serving_schedule_shape(which, block_seg, ops, forks):
+    """The serving walk's node order: fewer ops and, at small L, fewer forks
+    than the exact schedule (2257 compat, 1857 v2 ops, 448 forks); rate-1
+    and SPC nodes only from ``_node_level`` on, with the JAX block's span."""
+    _, pspec = _specs(which)
+    words = pscl.serving_schedule(pspec, block_seg)
+    assert words.dtype == np.int32 and words.size == ops
+    assert pscl.serving_schedule(pspec, block_seg) is words
+    N, n = pspec.N, pspec.N.bit_length() - 1
+    assert {L: pscl.schedule_forks(words, N, L) for L in forks} == forks
+    exact = pscl.node_schedule(pspec)
+    assert {pscl.schedule_forks(exact, N, L) for L in forks} == {pspec.K}
+    code, level = words & 15, (words >> 4) & 15
+    node = np.isin(code, (pscl.OP_RATE1, pscl.OP_SPC))
+    assert node.any() and (level[node] >= pscl._node_level(n, block_seg)).all()
+    assert pscl._node_span(words, N) == 2 * block_seg
+    assert code[-1] == pscl.OP_COMB and level[-1] == 0
+    wide = pscl.serving_schedule(pspec, 4096)       # spans up to N / 2
+    assert pscl._node_level(n, 4096) == 1
+    assert pscl._node_span(wide, N) <= N // 2
+    pscl._check_ops(torch.from_numpy(wide), torch.device("cpu"), n, True)
+
+
+@pytest.mark.parametrize("which,L,block_seg", [
+    ("compat", 1, 16), ("compat", 4, 16), ("compat", 8, 16), ("v2", 1, 16),
+    ("v2", 4, 16), ("v2", 8, 16), ("compat", 8, 8), ("v2", 8, 64)])
+def test_serving_replay_equals_walk(which, L, block_seg):
+    """The kernel's serving schedule and node-state scheme give the eager
+    serving walk's lists bit for bit (the same torch arithmetic), on noisy,
+    noiseless and zero-LLR rows, at the default node size, at 16-leaf nodes
+    and at 64-leaf ones (the kernel's ranks counted through memory)."""
+    jspec, pspec = _specs(which)
+    llr = _mixed_rows(jspec, 40 + L)
+    got = _serving_replay(torch.from_numpy(llr), pspec, L, block_seg)
+    walk = {k: v.numpy() for k, v in pscl._walk_decode(
+        torch.from_numpy(llr), pspec, L, serving=True,
+        block_seg=block_seg).items()}
+    for k in ("info_bits", "crc_ok", "metrics"):
+        np.testing.assert_array_equal(got[k], walk[k], err_msg=k)
+    assert got["crc_ok"][3, 0] and got["metrics"][3, 0] == 0.0
+
+
+@pytest.mark.parametrize("case", ["noiseless-L1", "noiseless-L8",
+                                  "zero-L8", "waterfall-L8"])
+@pytest.mark.parametrize("which", ["compat", "v2"])
+def test_serving_replay_matches_jax(which, case):
+    """The replay against the JAX package's one-program serving decode at
+    the shapes of ``test_serving_decode_matches_jax`` (compiled once)."""
+    jspec, pspec = _specs(which)
+    kind, L = case.split("-L")
+    L = int(L)
+    llr = {"noiseless": lambda: _noiseless(jspec),
+           "zero": lambda: np.zeros((4, jspec.N), np.float32),
+           "waterfall": lambda: _awgn(jspec, 24, 0.35, 4242, 31)}[kind]()
+    want = {k: np.asarray(v) for k, v in jscl._scl_decode_unrolled(
+        llr, jspec, L, 16, serving=True).items()}
+    got = _serving_replay(torch.from_numpy(llr), pspec, L, 16)
+    _assert_lists_match(got, want)
+
+
+# ---------------------------------------------------------- the kernel
+def test_cpu_tensors_take_the_serving_walk(monkeypatch):
+    """A CPU tensor's serving decode is the eager walk: the kernel wrapper
+    is never reached and launches nothing."""
+    _, pspec = _specs("v2")
+    llr = torch.from_numpy(_awgn(pspec, 2, 0.45, 5, 6))
+    monkeypatch.setattr(pscl, "scl_decode_serving_kernel", None)
+    before = dict(build.LAUNCHES)
+    got = pscl._scl_decode(llr, pspec, 4, serving=True, block_seg=8)
+    want = pscl._walk_decode(llr, pspec, 4, serving=True, block_seg=8)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert dict(build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("entry,env,want", [
+    ("scl_decode", {"IMPL": "serving"}, ("serving", 8, 16)),
+    ("scl_decode", {"IMPL": "serving", "BLOCK_SEG": "64"}, ("serving", 8, 64)),
+    ("scl_decode_serving", {"SERVING": "1", "BLOCK_SEG": "8"},
+     ("serving", 8, 8)),
+    ("scl_decode_serving", {"SERVING": "0"}, ("exact", 8)),
+    ("scl_decode", {}, ("exact", 8))])
+def test_off_cpu_serving_routing(monkeypatch, entry, env, want):
+    """A tensor off the CPU (a meta tensor stands in for one on the card):
+    every serving decode goes to the serving kernel's wrapper at the
+    switches' ``block_seg``, every exact one to the exact kernel's, and
+    none to the walk."""
+    _, pspec = _specs("compat")
+    calls = []
+    monkeypatch.setattr(pscl, "scl_decode_serving_kernel",
+                        lambda x, s, L, bs: calls.append(("serving", L, bs)))
+    monkeypatch.setattr(pscl, "scl_decode_kernel",
+                        lambda x, s, L: calls.append(("exact", L)))
+    monkeypatch.setattr(pscl, "_walk_decode",
+                        lambda *a, **k: calls.append("walk"))
+    for name in ENV:
+        monkeypatch.delenv(name, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(f"ECHOSEAL_SCL_{k}", v)
+    getattr(pscl, entry)(torch.zeros(2, pspec.N, device="meta"), pspec, 8)
+    assert calls == [want]
+
+
+@pytest.mark.parametrize("shape,L,block_seg,match", [
+    ((2, 1024), 0, 16, "list size"), ((2, 1024), 65537, 16, "list size"),
+    ((2, 512), 8, 16, "shape"), ((1024,), 8, 16, "shape"),
+    ((2, 1024), 8, 0, "block_seg"), ((2, 1024), 8, "16", "block_seg"),
+    ((2, 1024), 8, True, "block_seg"), ((2, 1024), 8, 16, "CUDA")])
+def test_serving_kernel_wrapper_refuses(shape, L, block_seg, match):
+    """The serving wrapper raises, before any build or launch, on a list
+    size, shape or ``block_seg`` it does not take and on a tensor that is
+    not on a CUDA device; through ``_scl_decode`` a meta tensor reaches it
+    and raises too."""
+    _, pspec = _specs("compat")
+    before = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match=match):
+        pscl.scl_decode_serving_kernel(torch.zeros(shape), pspec, L,
+                                       block_seg)
+    with pytest.raises(ValueError, match="CUDA"):
+        pscl._scl_decode(torch.zeros(2, 1024, device="meta"), pspec, 8,
+                         serving=True, block_seg=16)
+    assert dict(build.LAUNCHES) == before
+
+
+def test_serving_op_words_checked():
+    """The serving decoder takes the rate-1 and SPC node ops from level 1
+    to n - 1; the exact decoder takes none."""
+    cpu = torch.device("cpu")
+    _, pspec = _specs("v2")
+    words = torch.from_numpy(pscl.serving_schedule(pspec, 16))
+    assert pscl._check_ops(words, cpu, 10, serving=True) == 32
+    with pytest.raises(ValueError, match="out of range"):
+        pscl._check_ops(words, cpu, 10)
+    for word in (pscl._op(pscl.OP_RATE1, 0, 0), pscl._op(pscl.OP_SPC, 10, 1),
+                 pscl._op(pscl.OP_SPC + 1, 3, 0), 1 << 9):
+        with pytest.raises(ValueError, match="out of range"):
+            pscl._check_ops(torch.tensor([word], dtype=torch.int32), cpu, 10,
+                            serving=True)
 
 
 # ------------------------------------------------------------- switches
