@@ -721,11 +721,12 @@ def _scl_work(scl, spec, rows: int, L: int) -> dict:
 
 
 def _fork_round_ms(torch, scl, spec, L: int, busy: int,
-                   k: int = 512, block_seg: int | None = None) -> float:
+                   k: int = 512, block_seg: int | None = None,
+                   kernel=None) -> float:
     """One fork round of the kernel at list size L: a row decoded along a
     schedule of the f chain to one leaf and then k leaf forks, less the
     same schedule with no forks, over k; with ``block_seg``, in the serving
-    kernel."""
+    kernel; ``kernel``, another build's ``scl.bind``."""
     n = spec.N.bit_length() - 1
     x = torch.zeros(1, spec.N, device="cuda")
     head = [scl._op(scl.OP_F, lv, 0) for lv in range(n)]
@@ -735,12 +736,41 @@ def _fork_round_ms(torch, scl, spec, L: int, busy: int,
                            dtype=torch.int32, device="cuda")
         if block_seg is None:
             def run():
-                scl.scl_decode_kernel(x, spec, L, ops=ops)
+                scl.scl_decode_kernel(x, spec, L, ops=ops, kernel=kernel)
         else:
             def run():
-                scl.scl_decode_serving_kernel(x, spec, L, block_seg, ops=ops)
+                scl.scl_decode_serving_kernel(x, spec, L, block_seg, ops=ops,
+                                              kernel=kernel)
         t[m] = cuda_ms(run, torch, n=10, busy=busy)
     return (t[k] - t[0]) / k
+
+
+def _node_round_ms(torch, scl, spec, L: int, busy: int, block_seg: int,
+                   k: int = 64, kernel=None) -> float:
+    """One node fork of the serving kernel at list size L: a row decoded
+    along the f chain to the level of ``serving_schedule(spec,
+    block_seg)``'s widest node and then k rate-1 node ops there, less the
+    same schedule with no node op, over the k min(L-1, w) forks (each
+    node's rank pass and partial sums shared among its forks); 0 when a
+    node makes no fork (L = 1)."""
+    n = spec.N.bit_length() - 1
+    span = scl._node_span(scl.serving_schedule(spec, block_seg), spec.N)
+    lv = n - (span.bit_length() - 1)
+    q = min(L - 1, span)
+    if q == 0:
+        return 0.0
+    x = torch.zeros(1, spec.N, device="cuda")
+    head = [scl._op(scl.OP_F, v, 0) for v in range(lv)]
+    t = {}
+    for m in (0, k):
+        ops = torch.tensor(head + [scl._op(scl.OP_RATE1, lv, 0)] * m,
+                           dtype=torch.int32, device="cuda")
+
+        def run():
+            scl.scl_decode_serving_kernel(x, spec, L, block_seg, ops=ops,
+                                          kernel=kernel)
+        t[m] = cuda_ms(run, torch, n=10, busy=busy)
+    return (t[k] - t[0]) / (k * q)
 
 
 def scl_kernel_phase(torch, flush, busy):
@@ -840,7 +870,9 @@ def _serving_work(scl, spec, rows: int, L: int, block_seg: int) -> dict:
     a select), g 1, a rate-0 node's relu and sum 2, a repetition node's
     |.| and two sums 3, a leaf's |.| 1; a fork adds two candidates, an SPC
     node's fork one more.  The ranks, selects and partial sums are integer
-    work, and there is no exp or log1p (the SFUs are idle)."""
+    work, and there is no exp or log1p (the SFUs are idle).  ``forks``
+    splits into ``leaf_forks`` (leaves and repetition nodes) and
+    ``node_forks`` (rate-1 and SPC nodes)."""
     ops = scl.serving_schedule(spec, block_seg)
     code, width = ops & 15, spec.N >> ((ops >> 4) & 15)
     elems = {c: int(np.sum(np.where(code == c, w, 0)))
@@ -851,9 +883,11 @@ def _serving_work(scl, spec, rows: int, L: int, block_seg: int) -> dict:
     spc = int(np.minimum(L - 1, width[code == scl.OP_SPC] - 1).sum())
     fp32 = (3 * elems[scl.OP_F] + elems[scl.OP_G] + 2 * elems[scl.OP_RATE0]
             + elems[scl.OP_LEAF] + 3 * elems[scl.OP_REP] + 2 * forks + spc)
+    leaf = int(np.isin(code, (scl.OP_LEAF, scl.OP_REP)).sum())
     return {"fp32": rows * L * fp32,
             "bytes": rows * (4 * spec.N + L * (4 * spec.info_len + 5)),
-            "forks": forks, "ops": int(ops.size)}
+            "forks": forks, "leaf_forks": leaf, "node_forks": forks - leaf,
+            "ops": int(ops.size)}
 
 
 def serving_kernel_phase(torch, flush, busy):
@@ -867,16 +901,18 @@ def serving_kernel_phase(torch, flush, busy):
     (``plain_ms``) and the exact kernel at the same shape (``exact_ms``).
     ``bound_ms``, the larger of the bytes over HBM and the fp32 operations
     over the fp32 peak (``_serving_work``); ``floor_ms``, the schedule's
-    forks times one fork round of the serving kernel at this L
-    (``_fork_round_ms``).  Returns (the largest metric difference, the
-    ladder's first-rung ``kernels`` entry).
+    leaf forks times one leaf-fork round of the serving kernel at this L
+    (``_fork_round_ms``, ``fork_round_us``) plus its node forks times one
+    node fork (``_node_round_ms``, ``node_round_us``).  Returns (the
+    largest metric difference, the ladder's first-rung ``kernels``
+    entry).
     """
     from echoseal_torch.core.profiles import ROBUST, profile_spec
     from echoseal_torch.ops import polar, scl
 
     specs = {"compat": polar.polar_spec(), "v2": profile_spec(ROBUST)}
     rng = np.random.default_rng(SEED + 14)
-    fork_ms, entry, worst = {}, None, 0.0
+    fork_ms, node_ms, entry, worst = {}, {}, None, 0.0
     for name, rows, L, block_seg in SERVING_SHAPES:
         spec = specs[name]
         _, llr_np = _coded_rows(spec, rows, SERVING_SIGMA, rng)
@@ -896,6 +932,9 @@ def serving_kernel_phase(torch, flush, busy):
         if L not in fork_ms:
             fork_ms[L] = _fork_round_ms(torch, scl, spec, L, busy,
                                         block_seg=block_seg)
+        if (name, L, block_seg) not in node_ms:
+            node_ms[name, L, block_seg] = _node_round_ms(
+                torch, scl, spec, L, busy, block_seg)
 
         def kernel():
             scl.scl_decode_serving_kernel(x, spec, L, block_seg)
@@ -926,8 +965,13 @@ def serving_kernel_phase(torch, flush, busy):
                 else "operations", "bound_parts_ms": t,
                 "fp32_ops": work["fp32"], "bytes": work["bytes"],
                 "ops": work["ops"], "forks": work["forks"],
+                "leaf_forks": work["leaf_forks"],
+                "node_forks": work["node_forks"],
                 "fork_round_us": 1e3 * fork_ms[L],
-                "floor_ms": work["forks"] * fork_ms[L], "library_ms": None,
+                "node_round_us": 1e3 * node_ms[name, L, block_seg],
+                "floor_ms": work["leaf_forks"] * fork_ms[L]
+                + work["node_forks"] * node_ms[name, L, block_seg],
+                "library_ms": None,
                 "launch_host_us": host_us(kernel, torch),
                 "plan": scl.kernel_plan(spec.N, L, rows, block_seg, spec)}
         line["decodes_per_s"] = rows / (line["ms"] / 1e3)
@@ -3009,9 +3053,10 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
         "B": B, "factor": SCALE, "gate": RECOVER_GATE,
         "serving_accept": rec_accept, "exact_accept": exact_line["accept"],
         "serving_s": rec_s, "exact_second_call_s": exact2["seconds"],
-        "serving_rounds": [{"s": r["s"], "scl_s": r["scl_s"],
-                            "scl_share": r["scl_s"] / max(r["s"], 1e-9)}
-                           for r in log["rounds"]],
+        "serving_rounds": [{**{k: r[k] for k in (
+            "rows", "host_rows", "dens", "accepted", "s", "plan_s",
+            "scl_s")}, "scl_share": r["scl_s"] / max(r["s"], 1e-9)}
+            for r in log["rounds"]],
         "serving_scl_s": sum(r["scl_s"] for r in log["rounds"]),
         "exact_scl_s": exact2["scl_s"],
         "exact_rounds_s": exact2["rounds_s"]}

@@ -1,6 +1,7 @@
 """Where a row's time goes inside the SCL kernel, op by op, on one card.
 
-    python3 -m echoseal_torch.tools.scl_trace [SPEC:ROWS:L[:BLOCK_SEG] ...]
+    python3 -m echoseal_torch.tools.scl_trace [--source CU] \
+        [SPEC:ROWS:L[:BLOCK_SEG] ...]
 
 Builds a copy of ``csrc/scl_decode.cu`` in which the first thread of the
 first block stamps ``clock64()`` as its first row starts each node op and
@@ -12,14 +13,21 @@ CUDA-event ms (the stamps add one store per op).  Row 0 runs beside the
 other rows of its launch, so its cycles include their contention.  SPEC is
 ``compat`` or ``v2``; a fourth field runs the serving decoder at that
 ``block_seg`` (``serving_schedule``), whose rate-1 and SPC node ops hold
-their own forks (``node_share``).  Needs one CUDA card and nvcc.
+their own forks (``node_share``; ``node_cycles_per_fork``, their cycles
+over the forks they make at this L; ``node_phases``, their cycles split
+into the rank pass, the forks, the partial sums with the permutation and
+the closing barrier, where the source has the anchors).  ``--source``
+traces another copy of the kernel source (a parent commit's, say) instead
+of this checkout's.
+Needs one CUDA card and nvcc.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
-import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -37,30 +45,56 @@ ANCHORS = (("      const int op = op_next;\n", _STAMP.format(k="k"), True),
             False))
 
 
+# a serving node's phases, stamped before these lines: its rank pass done,
+# its forks done (in registers, or through memory), its partial sums and
+# permutation done
+_NODE = "if (row == 0 && threadIdx.x == 0) g_node[3 * k + {j}] = clock64();\n"
+NODE_ANCHORS = (
+    ("          // the parity of buffer b's hard decisions (SPC)\n", 0),
+    ("              if (live) {\n                s_metric[p] = met;\n", 1),
+    ("            const uint32_t* stf = s_st + nc * L;\n", 1),
+    ("          if (t0 < need) {                 // the node's one "
+     "permutation\n", 2))
+NODE_PHASES = ("rank", "forks", "finish")
+
+
 def traced_source(src: str) -> str:
-    """``src`` with the stamps and a reader ``scl_trace_read``."""
+    """``src`` with the stamps and a reader ``scl_trace_read``; where the
+    serving node's phase anchors are all found once, also their stamps and
+    ``scl_trace_node`` (another source, without them, traces the ops
+    alone)."""
     for anchor, stamp, after in ANCHORS:
         if src.count(anchor) != 1:
             raise RuntimeError(f"scl_trace: anchor {anchor.strip()!r} not "
                                "once in scl_decode.cu")
         src = src.replace(anchor, anchor + stamp if after else stamp + anchor)
-    src = src.replace("namespace {\n",
-                      "namespace {\n__device__ long long g_stamp[8192];\n", 1)
-    return src + ('\nextern "C" int scl_trace_read(long long* out, int n) {\n'
-                  "  return static_cast<int>(cudaMemcpyFromSymbol(out, "
-                  "g_stamp, n * 8));\n}\n")
+    decl = "__device__ long long g_stamp[8192];\n"
+    tail = ('\nextern "C" int scl_trace_read(long long* out, int n) {\n'
+            "  return static_cast<int>(cudaMemcpyFromSymbol(out, "
+            "g_stamp, n * 8));\n}\n")
+    if all(src.count(a) == 1 for a, _ in NODE_ANCHORS):
+        for anchor, j in NODE_ANCHORS:
+            src = src.replace(anchor, _NODE.format(j=j) + anchor)
+        decl += "__device__ long long g_node[3 * 8192];\n"
+        tail += ('extern "C" int scl_trace_node(long long* out, int n) {\n'
+                 "  return static_cast<int>(cudaMemcpyFromSymbol(out, "
+                 "g_node, n * 8));\n}\n")
+    src = src.replace("namespace {\n", "namespace {\n" + decl, 1)
+    return src + tail
 
 
-def _load() -> tuple[ctypes.CDLL, tuple]:
+def _load(source: Path) -> tuple[ctypes.CDLL, tuple]:
     out_dir = build.BUILD_DIR / "trace"
     out_dir.mkdir(parents=True, exist_ok=True)
     src = out_dir / "scl_trace.cu"
-    src.write_text(traced_source((build.CSRC / "scl_decode.cu").read_text()))
+    src.write_text(traced_source(source.read_text()))
     lib = out_dir / "libscl_trace.so"
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
                     str(src)], check=True)
     dll = ctypes.CDLL(str(lib))
     dll.scl_trace_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    if hasattr(dll, "scl_trace_node"):
+        dll.scl_trace_node.argtypes = [ctypes.c_void_p, ctypes.c_int]
     return dll, scl.bind(dll)
 
 
@@ -105,20 +139,39 @@ def trace(dll, kernel: tuple, name: str, rows: int, L: int,
                                 "cycles": int(cycles[sel].sum())}
     forks = cycles[np.isin(code, (scl.OP_LEAF, scl.OP_REP))].sum()
     out["fork_share"] = float(forks / max(out["row_cycles"], 1))
-    nodes = cycles[np.isin(code, (scl.OP_RATE1, scl.OP_SPC))].sum()
+    node = np.isin(code, (scl.OP_RATE1, scl.OP_SPC))
+    nodes = cycles[node].sum()
     out["node_share"] = float(nodes / max(out["row_cycles"], 1))
+    node_forks = scl.schedule_forks(ops[node], spec.N, L)
+    out["node_forks"] = node_forks
+    out["node_cycles_per_fork"] = float(nodes / node_forks) \
+        if node_forks else None
+    if block_seg is not None and hasattr(dll, "scl_trace_node"):
+        marks = np.zeros(3 * ops.size, dtype=np.int64)
+        if dll.scl_trace_node(marks.ctypes.data, marks.size) != 0:
+            raise RuntimeError("scl_trace: reading the node stamps failed")
+        at = np.concatenate((stamps[:-1, None], marks.reshape(-1, 3),
+                             stamps[1:, None]), axis=1)[node]
+        out["node_phases"] = {
+            ph: {"median_cycles": int(np.median(d)), "cycles": int(d.sum())}
+            for ph, d in zip(NODE_PHASES + ("sync",), np.diff(at, axis=1).T)}
     return out
 
 
 def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--source", type=Path,
+                    default=build.CSRC / "scl_decode.cu")
+    ap.add_argument("shapes", nargs="*")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("scl_trace: needs a CUDA card")
-    dll, kernel = _load()
-    for shape in (argv if argv else SHAPES):
+    dll, kernel = _load(args.source)
+    for shape in (args.shapes or SHAPES):
         name, rows, L, *seg = shape.split(":")
         print(json.dumps(trace(dll, kernel, name, int(rows), int(L),
                                int(seg[0]) if seg else None)), flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    main()

@@ -247,13 +247,17 @@ def test_scl_list_agreement_counts():
 
 def test_scl_trace_stamps_the_kernel_source():
     """``tools/scl_trace.py`` finds its anchors in ``scl_decode.cu``: a
-    stamp at every node op and one before the final lists."""
+    stamp at every node op and one before the final lists, and the serving
+    node's phase stamps (rank pass, forks in registers or through memory,
+    partial sums)."""
     from echoseal_torch.tools import scl_trace
 
     src = (build.CSRC / "scl_decode.cu").read_text()
     traced = scl_trace.traced_source(src)
     assert traced.count("g_stamp[") == 3            # declaration + 2 stamps
     assert "scl_trace_read" in traced and "scl_trace_read" not in src
+    assert traced.count("g_node[") == 5             # declaration + 4 stamps
+    assert "scl_trace_node" in traced
     with pytest.raises(RuntimeError, match="anchor"):
         scl_trace.traced_source(src.replace("int P2 = pow2_at_least(L)",
                                             "int P2 = L"))
@@ -435,6 +439,30 @@ def test_scl_serving_kernel_on_card(spec_name, L, block_seg):
     assert agree["holds"], agree
     assert got["info_bits"].shape == (8, L, spec.info_len)
     assert got["crc_ok"][-2, 0] and got["metrics"][-2, 0] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_seg", [8, 16, 64])
+@pytest.mark.parametrize("L", [1, 2, 4, 8, 16, 32, 64])
+def test_scl_serving_node_forks_on_card(L, block_seg):
+    """The node ops' fork schemes against the serving walk: forks in one
+    warp's registers at L <= 32 (one-warp rows to L = 16, two-warp rows at
+    32), through memory at 64; flip words over the ranks at 16-, 32- and
+    128-leaf nodes.  Seven rows leave a block part-filled (four or two
+    rows a block); the all-zero row, where every fork is a tie, must give
+    the walk's lists exactly, its order the candidates' indices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    spec = SCL_SPECS["v2" if block_seg == 16 else "compat"]()
+    x = torch.from_numpy(_scl_rows(spec, 7, seed=7 * L + block_seg)).cuda()
+    got = scl.scl_decode_serving_kernel(x, spec, L, block_seg)
+    torch.cuda.synchronize()
+    want = scl._walk_decode(x, spec, L, serving=True, block_seg=block_seg)
+    agree = scl.list_agreement(got, want)
+    assert agree["holds"], agree
+    assert got["crc_ok"][-2, 0] and got["metrics"][-2, 0] == 0.0
+    for k in got:
+        assert torch.equal(got[k][-1].cpu(), want[k][-1].cpu()), k
 
 
 @pytest.mark.cuda

@@ -86,18 +86,55 @@ def _both(llr, jspec, pspec, L, block_seg=16):
     return got, want
 
 
+def _sort_key(vals, idx):
+    """scl_decode.cu's 64-bit fork keys as int64: the float32 values'
+    order-preserving bits (-0 as +0, NaN above +inf) over the candidate
+    index, so that key order is ``torch.sort(stable=True)``'s order."""
+    v = torch.where(vals == 0.0, torch.zeros_like(vals), vals)
+    u = v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u ^ (1 << 31))
+    u = torch.where(torch.isnan(vals), torch.full_like(u, 0xFFFFFFFF), u)
+    return (u - (1 << 31)) * (1 << 32) + idx
+
+
+def _top_merge(keep, flip, L):
+    """The L smallest of two ascending runs of L unique int64 keys (B, L),
+    ascending, as scl_decode.cu's ``warp_top`` takes them: both runs
+    padded to Q = 2**ceil(log2 L) with keys above every real one,
+    min(A_i, B_(Q-1-i)) (the Q smallest, a bitonic run; no pair holds two
+    pads, since L > Q / 2), then bitonic half-cleaners of strides Q/2 ..
+    1."""
+    B, Q = keep.shape[0], 1 << (L - 1).bit_length()
+    pad = torch.iinfo(torch.int64).max - torch.arange(Q - L)
+    a = torch.cat((keep, pad.expand(B, Q - L)), dim=1)
+    b = torch.cat((flip, pad.flip(0).expand(B, Q - L)), dim=1)
+    c = torch.minimum(a, b.flip(1))
+    j = Q // 2
+    while j:
+        x = c.reshape(B, Q // (2 * j), 2, j)
+        c = torch.stack((torch.minimum(x[:, :, 0], x[:, :, 1]),
+                         torch.maximum(x[:, :, 0], x[:, :, 1])),
+                        dim=2).reshape(B, Q)
+        j //= 2
+    return c[:, :L]
+
+
 def _serving_replay(llr, spec, L, block_seg):
     """``serving_schedule(spec, block_seg)`` run as scl_decode.cu's serving
     instantiation runs it, in torch ops.
 
     Slots, source indices and the forks' live columns are
     tests/test_torch_scl.py::_replay's.  A rate-1 or SPC node ranks the
-    magnitudes of each of its level's L alpha buffers (stably), gives each
-    path its buffer as its ancestor, then carries per path the ancestor,
-    f0 and a mask of the flipped positions, each gathered by the survivors'
-    parents at every fork, and writes (alpha[ancestor] > 0) ^ mask as its
-    partial sums for every path.  The decisions are u = x G of the root's
-    sums.
+    magnitudes of each of its level's L alpha buffers (stably) and packs
+    each buffer's hard decisions; each path carries its ancestor buffer,
+    its origin (its index at the node's start) and a flip word over the
+    ranks (bit 0 of an SPC node: f0), gathered by the survivors' parents
+    at every fork.  A node's first fork sorts all 2L keys; a later one
+    sorts the L flip keys and merges them with the keeps, which are
+    ascending already (``_top_merge``).  At the node's end the live index
+    columns are permuted once, by the origins, and the partial sums are
+    the ancestor's hard decisions toggled at the flipped ranks.  The
+    decisions are u = x G of the root's sums.
     """
     B, N = llr.shape
     n = N.bit_length() - 1
@@ -108,6 +145,7 @@ def _serving_replay(llr, spec, L, block_seg):
     zero = torch.zeros((B, L))
     buf, src = {0: llr[:, None, :].expand(B, L, N)}, {0: ident}
     right = [False] * n                 # dir: in the right child at level l
+    cand_idx = torch.arange(2 * L).expand(B, 2 * L)
 
     def read(slot):
         return buf[slot][rows, src[slot]]
@@ -115,15 +153,32 @@ def _serving_replay(llr, spec, L, block_seg):
     def write(slot, t):
         buf[slot], src[slot] = t, ident
 
+    def permute(parent, l):
+        for k in [n + 3 + 2 * lv if right[lv] else lv
+                  for lv in range(l) if right[lv] or lv]:
+            src[k] = src[k].gather(1, parent)
+
     def fork(pen0, pen1, l):
         nonlocal metric
         cand = torch.stack((metric + pen0, metric + pen1), dim=-1)
         vals, idx = torch.sort(cand.reshape(B, 2 * L), dim=-1, stable=True)
         metric, parent = vals[:, :L], idx[:, :L] >> 1
-        for k in [n + 3 + 2 * lv if right[lv] else lv
-                  for lv in range(l) if right[lv] or lv]:
-            src[k] = src[k].gather(1, parent)
+        permute(parent, l)
         return (idx[:, :L] & 1).bool(), parent
+
+    def node_fork(pen, first):
+        """A node's fork by keys; survivors' (bit, parent); no columns."""
+        nonlocal metric
+        cand = torch.stack((metric, metric + pen), dim=-1).reshape(B, 2 * L)
+        keys = _sort_key(cand, cand_idx)
+        if first:
+            top = torch.sort(keys, dim=-1).values[:, :L]
+        else:
+            top = _top_merge(keys[:, 0::2],
+                             torch.sort(keys[:, 1::2], dim=-1).values, L)
+        idx = top & 0xFFFFFFFF
+        metric = cand.gather(1, idx)
+        return (idx & 1).bool(), idx >> 1
 
     for op in pscl.serving_schedule(spec, block_seg).tolist():
         code, l, side = op & 15, (op >> 4) & 15, (op >> 8) & 1
@@ -152,29 +207,32 @@ def _serving_replay(llr, spec, L, block_seg):
             mag = a.abs()
             order = torch.argsort(mag, dim=-1, stable=True)
             smag = mag.gather(-1, order)
-            anc = src[l]
-            pos = torch.arange(w)
-            mask = torch.zeros((B, L, w), dtype=torch.bool)
+            hard = a > 0.0
+            anc, org = src[l], ident
+            need = min(L, w) if spc else min(L - 1, w)
+            flips = torch.zeros((B, L, w), dtype=torch.bool)   # by rank
             if spc:
-                f0 = (((a > 0.0).sum(dim=-1) & 1) == 1).gather(1, anc)
+                f0 = ((hard.sum(dim=-1) & 1) == 1).gather(1, anc)
                 metric = metric + f0.to(torch.float32) * \
                     smag[..., 0].gather(1, anc)
-                mask = (pos == order[..., 0].gather(1, anc)[..., None]) \
-                    & f0[..., None]
-            for t in range(1 if spc else 0,
-                           min(L, w) if spc else min(L - 1, w)):
+                flips[..., 0] = f0
+            for t in range(1 if spc else 0, need):
                 pen = smag[..., t].gather(1, anc)
                 if spc:
+                    f0 = flips[..., 0]
                     pen = pen + (1.0 - 2.0 * f0.to(torch.float32)) * \
                         smag[..., 0].gather(1, anc)
-                bits, parent = fork(zero, pen, l)
-                anc, mask = anc.gather(1, parent), mask[rows, parent]
-                hit = pos == order[..., t].gather(1, anc)[..., None]
+                bits, parent = node_fork(pen, t == (1 if spc else 0))
+                anc, org = anc.gather(1, parent), org.gather(1, parent)
+                flips = flips[rows, parent]
+                flips[..., t] ^= bits
                 if spc:
-                    f0 = f0.gather(1, parent) ^ bits
-                    hit ^= pos == order[..., 0].gather(1, anc)[..., None]
-                mask = mask ^ (hit & bits[..., None])
-            write(out, (a[rows, anc] > 0.0) ^ mask)
+                    flips[..., 0] ^= bits
+            if need > (1 if spc else 0):        # the node's one permutation
+                permute(org, l)
+            toggle = torch.zeros_like(flips).scatter(
+                -1, order[rows, anc], flips)
+            write(out, hard[rows, anc] ^ toggle)
     u = ppolar.polar_transform(read(n + 1).to(torch.int32))
     data = u[..., torch.from_numpy(spec.data_pos)]
     crc_ok = ppolar.crc8_check_batch(data[..., :spec.info_len],
@@ -325,6 +383,40 @@ def test_serving_replay_matches_jax(which, case):
         llr, jspec, L, 16, serving=True).items()}
     got = _serving_replay(torch.from_numpy(llr), pspec, L, 16)
     _assert_lists_match(got, want)
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 5, 8, 13, 16, 17, 31, 32, 33, 64])
+def test_top_merge_equals_full_sort(L):
+    """A node fork after the first: the keeps of the previous fork's
+    survivors (in rank order, so ascending) and the sorted flips, merged by
+    ``_top_merge``, give the same survivors in the same order as a stable
+    sort of all 2L candidates, on rows with tied metrics, BIG_METRIC dead
+    paths, NaN, -0 beside +0 and zero penalties; and the 64-bit keys sort
+    as ``torch.sort(stable=True)`` does (a node's first fork)."""
+    rng = np.random.default_rng(L)
+    B = 48
+    pool = np.array([0.0, -0.0, 0.5, 1.0, 1.0, 2.5, pscl.BIG_METRIC, np.nan],
+                    np.float32)
+    m = np.where(rng.random((B, L)) < 0.5, rng.choice(pool, (B, L)),
+                 rng.exponential(2.0, (B, L))).astype(np.float32)
+    m[0] = pscl.BIG_METRIC                            # every path dead
+    m[1] = 0.0                                        # every path tied
+    pen = np.where(rng.random((B, L)) < 0.4,
+                   rng.choice(np.array([0.0, 0.5, np.nan], np.float32),
+                              (B, L)),
+                   rng.exponential(1.0, (B, L))).astype(np.float32)
+    pen[1] = 0.0
+    keep = torch.sort(torch.from_numpy(m), dim=-1, stable=True).values
+    cand = torch.stack((keep, keep + torch.from_numpy(pen)),
+                       dim=-1).reshape(B, 2 * L)
+    want = torch.sort(cand, dim=-1, stable=True).indices[:, :L]
+    keys = _sort_key(cand, torch.arange(2 * L).expand(B, 2 * L))
+    assert (keys[:, 0::2].diff(dim=-1) > 0).all()     # the keeps ascend
+    got = _top_merge(keys[:, 0::2], torch.sort(keys[:, 1::2], dim=-1).values,
+                     L)
+    assert torch.equal(got & 0xFFFFFFFF, want)
+    assert torch.equal(torch.sort(keys, dim=-1).values[:, :L] & 0xFFFFFFFF,
+                       want)
 
 
 # ---------------------------------------------------------- the kernel
