@@ -61,6 +61,7 @@ from echoseal_torch.ops.llr import payload_decode
 from echoseal_torch.ops.polar import PolarSpec, polar_spec
 from echoseal_torch.ops.resample import DeviceResampler
 from echoseal_torch.ops.scl import scl_decode_serving
+from echoseal_torch.utils.logging import Timer, span_attrs
 
 DEFAULT_MAX_CTR = 16_384     # ~7 min of stream @ 39.5 frames/s
 DEFAULT_PEAKS = 2            # sync peaks examined per band per clip
@@ -480,18 +481,28 @@ class BatchVerifier:
         ``details`` (optional dict) collects a ``ClipDetail`` per accepted
         clip index.
         """
-        out = self.run_device(clips, n_valid)
-        verdicts, _ = self.finish_host_detailed(
-            out, expected_nonce=expected_nonce, details=details)
-        # n_valid == 0 rows are padding: they can never verify, so they
-        # must not trigger escalation
-        real = (torch.as_tensor(n_valid).cpu().numpy() > 0
-                if n_valid is not None else np.ones(verdicts.shape, bool))
-        pending = real & ~verdicts
-        if pending.any():
-            verdicts |= self._extended_counter_pass(
-                out, pending, expected_nonce, max_stream_frames,
-                details=details)
+        with Timer("verify_batch", clips=len(clips)) as root:
+            with Timer("verify.device") as sp:
+                out = self.run_device(clips, n_valid,
+                                      marks=sp.marks_for(self.device))
+            with Timer("verify.download") as sp:
+                packed = out["host_packed"].cpu().numpy()
+                # n_valid == 0 rows are padding: they can never verify, so
+                # they must not trigger escalation
+                real = (torch.as_tensor(n_valid).cpu().numpy() > 0
+                        if n_valid is not None
+                        else np.ones(packed.shape[0], bool))
+                sp.attrs["bytes"] = packed.nbytes
+            verdicts, _ = self.finish_host_detailed(
+                out, expected_nonce=expected_nonce, details=details,
+                packed=packed)
+            pending = real & ~verdicts
+            if pending.any():
+                with Timer("verify.ext_ctr", rows=int(pending.sum())):
+                    verdicts |= self._extended_counter_pass(
+                        out, pending, expected_nonce, max_stream_frames,
+                        details=details)
+            root.attrs["accepts"] = int(verdicts.sum())
         return verdicts
 
     def _extended_counter_pass(self, out, mask: np.ndarray,
@@ -506,8 +517,10 @@ class BatchVerifier:
             return rescued
         B = mask.shape[0]
         # one download: readable headers as lo16, unreadable as -1
-        lo16_or = torch.where(out["hdr_ok"], out["hdr_lo16"], -1).cpu().numpy(
-        ).reshape(B, 4, -1)
+        with Timer("ext_ctr.download") as sp:
+            lo16_or = torch.where(out["hdr_ok"], out["hdr_lo16"], -1).cpu(
+            ).numpy().reshape(B, 4, -1)
+            sp.attrs["bytes"] = lo16_or.nbytes
         hdr_ok = (lo16_or >= 0) & mask[:, None, None]
         ii0, bb0, pp0 = np.nonzero(hdr_ok)            # readable headers
         base = lo16_or[ii0, bb0, pp0].astype(np.int64)
@@ -515,7 +528,8 @@ class BatchVerifier:
         cand = base[:, None] + m[None, :]             # (nh, n_mult)
         ok = (cand >= self.max_ctr) & (cand < max_stream_frames)
         if ok.any():
-            band_of = self._hop.indices(cand[ok].ravel())
+            with Timer("ext_ctr.hop", counters=int(ok.sum())):
+                band_of = self._hop.indices(cand[ok].ravel())
             ok_flat = np.zeros(cand.shape, dtype=bool)
             ok_flat[ok] = band_of == np.repeat(bb0, n_mult).reshape(
                 cand.shape)[ok]
@@ -529,24 +543,31 @@ class BatchVerifier:
         # gather, despread and decode ON THE DEVICE; the PN of each
         # candidate counter goes up as packed bits, one verdict row down
         uniq, inv = np.unique(ctrs, return_inverse=True)
-        pn = self.sec.pn_bits_batch(uniq, FRAME_LEN)[:, PRE_L + HDR_L :]
-        pnp = np.packbits(pn[inv].astype(np.uint8), axis=-1)
+        with Timer("ext_ctr.pn", counters=int(uniq.size)):
+            pn = self.sec.pn_bits_batch(uniq, FRAME_LEN)[:, PRE_L + HDR_L :]
+            pnp = np.packbits(pn[inv].astype(np.uint8), axis=-1)
         dev = self.device
         chips_dev = out["chips"].reshape(B, 4, -1, FRAME_LEN)
-        host_row = _ext_ctr_stage(
+        row = _ext_ctr_stage(
             chips_dev, *(torch.as_tensor(a, dtype=torch.int64, device=dev)
                          for a in (ii, bb, pp)),
-            torch.as_tensor(pnp, device=dev), self._spec).cpu().numpy()
+            torch.as_tensor(pnp, device=dev), self._spec)
+        with Timer("ext_ctr.download") as sp:
+            host_row = row.cpu().numpy()
+            sp.attrs["bytes"] = host_row.nbytes
         hits = np.flatnonzero(host_row[:, 0] > 0)
-        nonces = self._accept_blobs([host_row[r, 1:].tobytes() for r in hits],
-                                    ctrs[hits], expected_nonce)
-        for r, nonce in zip(hits, nonces):
-            i = int(ii[r])
-            if nonce is None or rescued[i]:
-                continue
-            rescued[i] = True
-            if details is not None:
-                details[i] = ClipDetail(nonce, int(ctrs[r]), "ext_ctr")
+        with Timer("ext_ctr.open") as sp:
+            nonces = self._accept_blobs(
+                [host_row[r, 1:].tobytes() for r in hits], ctrs[hits],
+                expected_nonce)
+            for r, nonce in zip(hits, nonces):
+                i = int(ii[r])
+                if nonce is None or rescued[i]:
+                    continue
+                rescued[i] = True
+                if details is not None:
+                    details[i] = ClipDetail(nonce, int(ctrs[r]), "ext_ctr")
+            sp.attrs["accepts"] = int(rescued.sum())
         return rescued
 
     def finish_host(self, out, *,
@@ -567,7 +588,9 @@ class BatchVerifier:
         caller has already downloaded it.
         """
         if packed is None:
-            packed = out["host_packed"].cpu().numpy()
+            with Timer("verify.download") as sp:
+                packed = out["host_packed"].cpu().numpy()
+                sp.attrs["bytes"] = packed.nbytes
         packed = packed.astype(np.int64)
         ok = packed[:, 0] > 0
         ctrs = ((packed[:, 1] << 24) | (packed[:, 2] << 16)
@@ -578,18 +601,22 @@ class BatchVerifier:
         verdicts = np.zeros(ok.shape[0], dtype=bool)
         nonces: list[bytes | None] = [None] * ok.shape[0]
         hits = np.flatnonzero(ok)
-        accepted = self._accept_blobs([blobs[i].tobytes() for i in hits],
-                                      ctrs[hits], expected_nonce)
-        for i, nonce in zip(hits, accepted):
-            if nonce is not None:
-                verdicts[i] = True
-                nonces[i] = nonce
-                if details is not None:
-                    details[int(i)] = ClipDetail(nonce, int(ctrs[i]), "hard")
+        with Timer("verify.open") as sp:
+            accepted = self._accept_blobs([blobs[i].tobytes() for i in hits],
+                                          ctrs[hits], expected_nonce)
+            for i, nonce in zip(hits, accepted):
+                if nonce is not None:
+                    verdicts[i] = True
+                    nonces[i] = nonce
+                    if details is not None:
+                        details[int(i)] = ClipDetail(nonce, int(ctrs[i]),
+                                                     "hard")
+            sp.attrs["accepts"] = int(verdicts.sum())
         retry = np.flatnonzero(ok & ~verdicts)
         if retry.size:
-            self._other_candidates(out, retry, expected_nonce, verdicts,
-                                   nonces, details)
+            with Timer("verify.other_candidates", rows=int(retry.size)):
+                self._other_candidates(out, retry, expected_nonce, verdicts,
+                                       nonces, details)
         return verdicts, nonces
 
     def _other_candidates(self, out, rows: np.ndarray,
@@ -606,23 +633,28 @@ class BatchVerifier:
         """
         n = rows.size
         r = torch.as_tensor(rows, device=self.device)
-        crc = out["crc_ok"][r].reshape(n, -1).cpu().numpy()
-        ctr = out["ctr"][r].reshape(n, -1).cpu().numpy()
-        info = out["info_bits"][r].reshape(n, crc.shape[1], -1).to(
-            torch.uint8).cpu().numpy()
+        with Timer("other_candidates.download") as sp:
+            crc = out["crc_ok"][r].reshape(n, -1).cpu().numpy()
+            ctr = out["ctr"][r].reshape(n, -1).cpu().numpy()
+            info = out["info_bits"][r].reshape(n, crc.shape[1], -1).to(
+                torch.uint8).cpu().numpy()
+            sp.attrs["bytes"] = crc.nbytes + ctr.nbytes + info.nbytes
         crc[np.arange(n), crc.argmax(1)] = False     # the packed row's, tried
         ii, cc = np.nonzero(crc)
         blobs = np.packbits(info[ii, cc], axis=-1)
-        accepted = self._accept_blobs([b.tobytes() for b in blobs],
-                                      ctr[ii, cc], expected_nonce)
-        for i, c, nonce in zip(ii, cc, accepted):
-            k = int(rows[i])
-            if nonce is None or verdicts[k]:
-                continue
-            verdicts[k] = True
-            nonces[k] = nonce
-            if details is not None:
-                details[k] = ClipDetail(nonce, int(ctr[i, c]), "hard")
+        with Timer("other_candidates.open") as sp:
+            accepted = self._accept_blobs([b.tobytes() for b in blobs],
+                                          ctr[ii, cc], expected_nonce)
+            before = int(verdicts.sum())
+            for i, c, nonce in zip(ii, cc, accepted):
+                k = int(rows[i])
+                if nonce is None or verdicts[k]:
+                    continue
+                verdicts[k] = True
+                nonces[k] = nonce
+                if details is not None:
+                    details[k] = ClipDetail(nonce, int(ctr[i, c]), "hard")
+            sp.attrs["accepts"] = int(verdicts.sum()) - before
 
     def _accept_blobs(self, blobs: list[bytes], ctrs: np.ndarray,
                       expected_nonce: bytes | None) -> list[bytes | None]:
@@ -631,10 +663,18 @@ class BatchVerifier:
         Returns the session nonce of each accepted payload, None elsewhere.
         The reference's "legacy plaintext" acceptance (an unsealed payload
         passing on magic+ctr alone) bypasses AEAD, so it is OFF unless the
-        caller opted in at construction.
+        caller opted in at construction.  While tracing, the open span
+        around the call gets the ``blobs`` and the ``opens``: decrypt
+        passes, one for a nonce-front payload, two for any other of 12
+        bytes or more.
         """
         out: list[bytes | None] = []
         opened = self.sec.open_any_layout_many(blobs)
+        attrs = span_attrs()
+        if attrs is not None:
+            attrs.update(blobs=len(blobs), opens=sum(
+                1 if layout == "nonce-front" else 2 * (len(b) >= 12)
+                for (_, layout), b in zip(opened, blobs)))
         for (plain, _), blob, ctr in zip(opened, blobs, ctrs):
             if plain is None and self.accept_legacy_plaintext and \
                     blob[:4] == MAGIC:
@@ -750,15 +790,25 @@ class RobustBatchVerifier(BatchVerifier):
         (``_ingest``), the batch-tier equivalent of a host ``resample_to``
         per clip; ``n_valid`` is then given in INPUT samples.
         """
-        if fs_in is not None and int(fs_in) != self.fs:
-            clips, n_valid = self._ingest(
-                clips, _lengths_np(n_valid, clips), int(fs_in))
-        out = self.run_device(clips, n_valid)
-        real = (_lengths_np(n_valid, clips) > 0
-                if n_valid is not None else None)
-        return self._finish_ladder(out, expected_nonce, use_scl,
-                                   max_stream_frames, real=real,
-                                   details=details)
+        with Timer("verify_batch", clips=len(clips)) as root:
+            if fs_in is not None and int(fs_in) != self.fs:
+                with Timer("ingest.download"):
+                    n_in = _lengths_np(n_valid, clips)
+                with Timer("verify.ingest"):
+                    clips, n_valid = self._ingest(clips, n_in, int(fs_in))
+            with Timer("verify.device") as sp:
+                out = self.run_device(clips, n_valid,
+                                      marks=sp.marks_for(self.device))
+            with Timer("verify.download") as sp:
+                real = (_lengths_np(n_valid, clips) > 0
+                        if n_valid is not None else None)
+                packed = out["host_packed"].cpu().numpy()
+                sp.attrs["bytes"] = packed.nbytes
+            verdicts = self._finish_ladder(out, expected_nonce, use_scl,
+                                           max_stream_frames, real=real,
+                                           details=details, packed=packed)
+            root.attrs["accepts"] = int(verdicts.sum())
+        return verdicts
 
     def _resampler(self, up: int, down_min: int, down_max: int,
                    t_in: int) -> DeviceResampler:
@@ -819,9 +869,12 @@ class RobustBatchVerifier(BatchVerifier):
         wide counter window (``echoseal_tpu/models/pipeline.py``).
         """
         span, tol = self.span, self.NEAR_START_PHASE_TOL
-        idx = torch.as_tensor(out["peak_idx"]).cpu().numpy()
+        with Timer("gate.download") as sp:
+            idx = torch.as_tensor(out["peak_idx"]).cpu().numpy()
+            val = torch.as_tensor(out["peak_val"]).cpu().numpy()
+            sp.attrs["bytes"] = idx.nbytes + val.nbytes
         idx = idx.reshape(idx.shape[0], -1).astype(np.int64)
-        val = torch.as_tensor(out["peak_val"]).cpu().numpy().reshape(idx.shape)
+        val = val.reshape(idx.shape)
         valid = np.isfinite(val)
         ph = idx % span                                     # (B, K)
         d = np.abs(ph[:, :, None] - ph[:, None, :])
@@ -839,8 +892,8 @@ class RobustBatchVerifier(BatchVerifier):
     def _finish_ladder(self, out, expected_nonce, use_scl: bool,
                        max_stream_frames: int,
                        real: np.ndarray | None = None,
-                       details: dict[int, ClipDetail] | None = None
-                       ) -> np.ndarray:
+                       details: dict[int, ClipDetail] | None = None,
+                       packed: np.ndarray | None = None) -> np.ndarray:
         """Hard verdicts -> futility gate -> staged SCL -> extended ctrs.
 
         ``real`` masks padding rows (n_valid == 0), which never escalate.
@@ -849,28 +902,40 @@ class RobustBatchVerifier(BatchVerifier):
         it skips the ladder, unless ``futility_qfloor`` lets its best soft
         row's mean |LLR| through or ``_near_start_mask`` finds it cut near
         the stream start, where the time estimate resolves the counter.
+        ``packed``: the host row, when the caller has already downloaded
+        it.  ``scl_rungs`` then describes this call's ladder.
         """
-        raw = out["host_packed"].cpu().numpy()
+        self.scl_rungs = []
+        if packed is None:
+            with Timer("verify.download") as sp:
+                packed = out["host_packed"].cpu().numpy()
+                sp.attrs["bytes"] = packed.nbytes
         verdicts, _ = self.finish_host_detailed(
-            out, expected_nonce=expected_nonce, details=details, packed=raw)
+            out, expected_nonce=expected_nonce, details=details, packed=packed)
         if real is None:
             real = np.ones(verdicts.shape, bool)
-        any_hdr, q_best = self._parse_evidence(raw)
-        evidence = any_hdr | (q_best >= self._futility_qfloor)
-        pending_nohdr = real & ~verdicts & ~evidence
-        if use_scl and pending_nohdr.any():
-            evidence |= pending_nohdr & self._near_start_mask(out)
-        pending = real & ~verdicts & evidence
+        with Timer("verify.gate") as sp:
+            any_hdr, q_best = self._parse_evidence(packed)
+            evidence = any_hdr | (q_best >= self._futility_qfloor)
+            pending_nohdr = real & ~verdicts & ~evidence
+            if use_scl and pending_nohdr.any():
+                evidence |= pending_nohdr & self._near_start_mask(out)
+            pending = real & ~verdicts & evidence
+            sp.attrs["rows"] = int(pending.sum())
         if use_scl and pending.any():
-            verdicts |= self._scl_fallback(out, pending, expected_nonce,
-                                           details=details)
+            with Timer("verify.ladder", rows=int(pending.sum())) as sp:
+                rescued = self._scl_fallback(out, pending, expected_nonce,
+                                             details=details)
+                sp.attrs["rescued"] = int(rescued.sum())
+            verdicts |= rescued
             pending = real & ~verdicts & evidence
         # the extended-counter pass can only act on readable headers
         pending &= any_hdr
         if pending.any():
-            verdicts |= self._extended_counter_pass(
-                out, pending, expected_nonce, max_stream_frames,
-                details=details)
+            with Timer("verify.ext_ctr", rows=int(pending.sum())):
+                verdicts |= self._extended_counter_pass(
+                    out, pending, expected_nonce, max_stream_frames,
+                    details=details)
         return verdicts
 
     # ------------------------------------------------- time-scale recovery
@@ -1139,7 +1204,6 @@ class RobustBatchVerifier(BatchVerifier):
         # recursion: each refinement level would otherwise pin its own
         # batch of resampled rows down the recursion
         del batch, parts, dev_rows
-        self.scl_rungs = []
         vr = self._finish_ladder(out, expected_nonce, True, 1 << 20,
                                  real=nv2_arr > 0)
         for r, i in enumerate(sel):
@@ -1230,15 +1294,15 @@ class RobustBatchVerifier(BatchVerifier):
         exact unless ``ECHOSEAL_SCL_SERVING`` or ``ECHOSEAL_SCL_IMPL``
         selects the fast-SSCL walk (``ops/scl.py``).
         """
-        self.scl_rungs = []
         rescued = np.zeros(mask.shape[0], dtype=bool)
         clips_f = np.flatnonzero(mask)
         if clips_f.size == 0:
             return rescued
-        dev = self.device
-        sel = torch.as_tensor(clips_f, device=dev)
+        sel = torch.as_tensor(clips_f, device=self.device)
         llr = out["scl_llr"][sel]                           # (F, R, 1024)
-        ctrs = out["scl_ctr"][sel].cpu().numpy()            # (F, R)
+        with Timer("ladder.download") as sp:
+            ctrs = out["scl_ctr"][sel].cpu().numpy()        # (F, R)
+            sp.attrs["bytes"] = ctrs.nbytes
         R = llr.shape[1]
         ladder = ([L for L in SCL_LADDER if L < self._list_size]
                   + [self._list_size])
@@ -1247,27 +1311,49 @@ class RobustBatchVerifier(BatchVerifier):
             for lsize in ladder:
                 if pending.size == 0 or lo >= hi:
                     continue
-                t0 = time.perf_counter()
-                w = hi - lo
-                sub = llr[torch.as_tensor(pending, device=dev), lo:hi]
                 sub_ctr = ctrs[pending, lo:hi].reshape(-1)
-                res = scl_decode_serving(sub.reshape(-1, sub.shape[-1]),
-                                         self._spec, lsize)
-                rr, ll = np.nonzero(res["crc_ok"].cpu().numpy())
-                blobs = _pack_bits(res["info_bits"][
-                    torch.as_tensor(rr, device=dev),
-                    torch.as_tensor(ll, device=dev)]).cpu().numpy()
-                accepted = self._accept_blobs([b.tobytes() for b in blobs],
-                                              sub_ctr[rr], expected_nonce)
-                for r, nonce in zip(rr, accepted):
-                    i = clips_f[pending[r // w]]
-                    if nonce is None or rescued[i]:
-                        continue
-                    rescued[i] = True
-                    if details is not None:
-                        details[int(i)] = ClipDetail(nonce, int(sub_ctr[r]),
-                                                     "scl")
+                with Timer("ladder.rung", rows=len(sub_ctr),
+                           list_size=lsize) as rung:
+                    rung.attrs["rescued"] = self._scl_rung(
+                        llr[:, lo:hi], pending, lsize, sub_ctr, clips_f,
+                        rescued, expected_nonce, details)
                 self.scl_rungs.append((f"{lo}:{hi}", lsize, len(sub_ctr),
-                                       time.perf_counter() - t0))
+                                       rung.elapsed))
                 pending = pending[~rescued[clips_f[pending]]]
         return rescued
+
+    def _scl_rung(self, llr, pending, lsize, sub_ctr, clips_f, rescued,
+                  expected_nonce, details) -> int:
+        """One rung: list-decode the soft rows ``llr`` (F, w, 1024) of the
+        ``pending`` clips at list size ``lsize``, open the CRC-passing paths
+        in (row, list) order, and mark the rescued clips in ``rescued`` and
+        ``details``.  Returns how many it rescued."""
+        dev = self.device
+        w = llr.shape[1]
+        with Timer("ladder.decode") as sp:
+            marks = sp.marks_for(dev)
+            sub = llr[torch.as_tensor(pending, device=dev)]
+            res = scl_decode_serving(sub.reshape(-1, sub.shape[-1]),
+                                     self._spec, lsize)
+            _mark(marks, "decode")
+        with Timer("ladder.download") as sp:
+            rr, ll = np.nonzero(res["crc_ok"].cpu().numpy())
+            blobs = _pack_bits(res["info_bits"][
+                torch.as_tensor(rr, device=dev),
+                torch.as_tensor(ll, device=dev)]).cpu().numpy()
+            sp.attrs["bytes"] = blobs.nbytes
+        with Timer("ladder.open") as sp:
+            accepted = self._accept_blobs([b.tobytes() for b in blobs],
+                                          sub_ctr[rr], expected_nonce)
+            new = 0
+            for r, nonce in zip(rr, accepted):
+                i = clips_f[pending[r // w]]
+                if nonce is None or rescued[i]:
+                    continue
+                rescued[i] = True
+                new += 1
+                if details is not None:
+                    details[int(i)] = ClipDetail(nonce, int(sub_ctr[r]),
+                                                 "scl")
+            sp.attrs["accepts"] = new
+        return new

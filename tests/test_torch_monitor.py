@@ -400,7 +400,7 @@ def test_rx_checkpoint_resume_and_cross_package(tmp_path, key32):
 
 
 def test_structured_logger_timer_and_trace(caplog):
-    from echoseal_torch.utils.logging import Timer, get_logger, trace_device
+    from echoseal_torch.utils.logging import Timer, get_logger, tracing
 
     log = get_logger("unit", min_interval_s=60.0)
     with caplog.at_level(logging.DEBUG, logger="echoseal"):
@@ -412,5 +412,9 @@ def test_structured_logger_timer_and_trace(caplog):
     with Timer("unit") as t:
         pass
     assert t.elapsed >= 0.0 and Timer.report()["unit"]["n"] >= 1
-    with trace_device("unit_span"):
-        assert torch.ones(2).sum() == 2
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with tracing() as tr, torch.profiler.profile(activities=acts) as prof:
+        with Timer("unit_span"):
+            assert torch.ones(2).sum() == 2
+    assert [s["name"] for s in tr.spans] == ["unit_span"]
+    assert "unit_span" in {e.key for e in prof.key_averages()}
