@@ -41,7 +41,14 @@ line):
    rows and under the same contract; its time, the walk's and the exact
    kernel's at the same shape in turns, the bound (bytes and fp32
    operations; no exp or log1p) and the floor (forks x one fork round of
-   the serving kernel);
+   the serving kernel); (e) ``sync_xcorr``, the v2 batch sync on the
+   tensor cores, against ``demod.sync_xcorr_plain`` on batch 0 of both v2
+   cells of the benchmark at two of its seeds (1024 rows of T + 16 384), a
+   recovery round's rows and ragged shapes: corr within SYNC_TOL, -inf at
+   exactly the masked lags, the NMS peaks at the same lags but for ties;
+   its time beside the plain version's, cuDNN's ``conv1d`` pair
+   (``library_ms``) and the bound (bf16 tensor-core operations against
+   bytes);
 4. compat main path at full width: a 4096-frame stream from the port's
    host TX (every random byte drawn from ``SEED``), B = 1024 clips of 3 s
    at 48 kHz cut at frame-aligned random starts,
@@ -268,6 +275,12 @@ MIXED_GATE = 0.9
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12      # dense tensor cores, fp32 accumulators
+# phase 3e: the v2 cells' benchmark seeds whose batch 0 the sync kernel
+# reads, and a recovery round's rows (TPAD_REC wide)
+SYNC_SEEDS = (2147483901, 3000000011)
+SYNC_REC_ROWS = 96
+SYNC_TOL = 1e-5
 # exp and log1p: 16 SFU results per SM per clock, 132 SMs, 1.98 GHz boost
 # (H100 SXM, the Hopper architecture white paper)
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
@@ -348,6 +361,8 @@ def scl_launches(path: str, launches) -> int:
 
 # path -> scl_serving launches of its runs (phase 26's serving legs)
 SERVING_BY_PATH: dict[str, int] = {}
+# path -> sync_xcorr launches of one verify_batch (phases 4 and 7)
+SYNC_BY_PATH: dict[str, int] = {}
 
 
 def serving_launches(path: str, launches, least: int = 1) -> int:
@@ -500,6 +515,133 @@ def kernel_phase(torch, llr, flush, busy, mhz):
                                         "bound_by")},
                 "library_ms": None,
             }
+    return max_err, entry
+
+
+def _sync_cases(torch):
+    """Phase 3e's inputs: (name, clips, n_valid).
+
+    Batch 0 of each v2 cell of the benchmark at SYNC_SEEDS (1024 rows of
+    T + 16 384), a recovery round's rows (SYNC_REC_ROWS of TPAD_REC, odd
+    lengths, some shorter than a frame, int64 lengths) and ragged small
+    shapes: one row, T = L, rows below a frame.
+    """
+    from portbench import gen, harness
+
+    cases = []
+    for cell in ("v2.batch-clean", "v2.batch-mp3"):
+        c = harness.load_cell(cell)
+        for seed in SYNC_SEEDS:
+            _, batches = gen.make_batches(c["config"], c["traffic"], seed,
+                                          "cuda")
+            cases.append((f"{cell}:{seed}", batches[0].clips,
+                          batches[0].n_valid))
+    clips0 = cases[0][1]
+    rng = np.random.default_rng(SEED + 30)
+    rec = torch.zeros(SYNC_REC_ROWS, TPAD_REC, device="cuda")
+    nv = rng.integers(int(0.97 * T35), TPAD_REC, SYNC_REC_ROWS) | 1
+    nv[:4] = (9000, 9719, 9720, 9721)        # below, at and past one frame
+    for i, n in enumerate(nv):
+        k = min(int(n), clips0.shape[1])
+        rec[i, :k] = clips0[i % clips0.shape[0], :k]
+    cases.append(("recover_round", rec, torch.from_numpy(nv).cuda()))
+    for rows, width in ((1, 20_011), (3, 504), (17, 9_999)):
+        x = 0.1 * torch.randn(rows, width, device="cuda")
+        n = torch.full((rows,), width, dtype=torch.int32, device="cuda")
+        cases.append((f"ragged_{rows}x{width}", x, n))
+    return cases
+
+
+def sync_kernel_phase(torch, flush, busy):
+    """Phase 3e: the v2 sync kernel against its plain version.
+
+    Each case of ``_sync_cases``: corr within SYNC_TOL of
+    ``demod.sync_xcorr_plain``, -inf at exactly the lags past
+    ``n_valid - span``, and the v2 stage's NMS peaks (4 a band) at the same
+    lags except where the plain version's two lags tie within twice the
+    case's error (ties, counted).  At the main path's shape and the
+    recovery round's: the kernel's, the plain version's and cuDNN's
+    (``normalized_xcorr`` in bf16 and the mask: the yardstick,
+    ``library_ms``) CUDA-event times, median of 25 with L2 flushed, and
+    the bound: 2 * 5 * L operations a valid lag at BF16_FLOP_PER_S against
+    the rows read and corr written at HBM_BYTES_PER_S.  Returns (max error,
+    the ``kernels`` entry).
+    """
+    from echoseal_torch.core.profiles import ROBUST
+    from echoseal_torch.models import robust
+    from echoseal_torch.ops import demod
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # as the verifiers
+    torch.backends.cudnn.allow_tf32 = False
+    span = ROBUST.span
+    tpl = torch.from_numpy(robust.robust_templates(FS, ROBUST.oversample)
+                           ).cuda()
+    L = tpl.shape[-1]
+
+    def library(x, nv):
+        corr = demod.normalized_xcorr(x, tpl, compute_dtype=torch.bfloat16)
+        lag = torch.arange(corr.shape[-1], device="cuda")
+        return corr.masked_fill_(lag > (nv[:, None, None] - span),
+                                 float("-inf"))
+
+    entry, max_err = None, 0.0
+    for name, x, nv in _sync_cases(torch):
+        got = demod.sync_xcorr(x, tpl, nv, span)
+        want = demod.sync_xcorr_plain(x, tpl, nv, span)
+        torch.cuda.synchronize()
+        n_out = x.shape[1] - L + 1
+        lag = torch.arange(n_out, device="cuda")
+        bad = (lag > (nv.long()[:, None] - span))[:, None, :].expand_as(got)
+        check(torch.equal(torch.isneginf(got), bad)
+              and torch.equal(torch.isneginf(want), bad),
+              f"sync_xcorr {name}: -inf off the masked lags")
+        err = float((got - want)[~bad].abs().max()) if (~bad).any() else 0.0
+        check(err <= SYNC_TOL, f"sync_xcorr {name}: max err {err}")
+        max_err = max(max_err, err)
+        line = {"phase": "kernel_check", "name": "sync_xcorr", "case": name,
+                "shape": list(x.shape), "L": L, "span": span,
+                "max_abs_err": err}
+        if n_out >= span // 2:
+            gi, _ = demod.topk_nms(got, V2_PEAKS, span // 2)
+            wi, _ = demod.topk_nms(want, V2_PEAKS, span // 2)
+            diff = (gi != wi).nonzero().tolist()
+            for r, b, k in diff:
+                a, w = int(gi[r, b, k]), int(wi[r, b, k])
+                gap = abs(float(want[r, b, a]) - float(want[r, b, w]))
+                check(gap <= 2 * err,
+                      f"sync_xcorr {name}: peak {r, b, k} at {a}, plain "
+                      f"{w}, gap {gap}")
+            line.update(peaks=int(gi.numel()), peak_ties=len(diff))
+        if x.shape[0] >= SYNC_REC_ROWS and name in (
+                f"v2.batch-clean:{SYNC_SEEDS[0]}", "recover_round"):
+            valid = torch.clamp(nv.long() - span + 1, 0, n_out).sum()
+            n_ops = 2 * 5 * L * int(valid)
+            n_bytes = 4 * x.numel() + 4 * got.numel()
+            t_ops = n_ops / BF16_FLOP_PER_S * 1e3
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            line.update(
+                ms=cuda_ms(lambda: demod.sync_xcorr(x, tpl, nv, span), torch,
+                           flush=flush, busy=busy),
+                plain_ms=cuda_ms(
+                    lambda: demod.sync_xcorr_plain(x, tpl, nv, span), torch,
+                    flush=flush, busy=busy),
+                library_ms=cuda_ms(lambda: library(x, nv), torch,
+                                   flush=flush, busy=busy),
+                bound_ms=max(t_ops, t_bytes), ops_ms=t_ops,
+                bytes_ms=t_bytes,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                valid_lags=int(valid))
+            if entry is None:
+                entry = {
+                    "name": "sync_xcorr", "route": "cuda",
+                    "source": "echoseal_torch/csrc/sync_xcorr.cu",
+                    "replaces": "echoseal_tpu/ops/demod.py:202 (XLA "
+                                "convolutions; no Pallas kernel)",
+                    "launches": None, "max_abs_err": None,
+                    **{k: line[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}}
+        emit(line)
+        del got, want
     return max_err, entry
 
 
@@ -1038,6 +1180,9 @@ def compat_phases(torch, card):
                      f"CRC-passing candidates {crc.sum(1).tolist()}")
     check(decode_launches(launches) > 0,
           "payload_decode never launched on the compat path")
+    check(launches.get("sync_xcorr", 0) == 0,
+          f"the fp32 compat sync launched sync_xcorr: {launches}")
+    SYNC_BY_PATH["compat"] = 0
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     noise = 0.05 * torch.randn(64, TPAD, device="cuda", generator=gen)
@@ -1238,6 +1383,10 @@ def v2_phases(torch, card):
           f"{starts[~verdicts].tolist()}")
     check(decode_launches(launches) > 0,
           "payload_decode never launched on the v2 path")
+    check(launches.get("sync_xcorr", 0) == 1,
+          f"the v2 call launched sync_xcorr {launches.get('sync_xcorr', 0)} "
+          "times; need 1")
+    SYNC_BY_PATH["v2"] = 1
     stages = {s: sum(d.stage == s for d in details.values())
               for s in ("hard", "scl", "ext_ctr")}
 
@@ -3148,6 +3297,7 @@ def main() -> None:
     decode_err, decode_entry = decode_kernel_phase(torch, llr, flush, busy)
     scl_err, scl_entry = scl_kernel_phase(torch, flush, busy)
     serving_err, serving_entry = serving_kernel_phase(torch, flush, busy)
+    sync_err, sync_entry = sync_kernel_phase(torch, flush, busy)
     del flush
 
     by_path = {}
@@ -3186,12 +3336,13 @@ def main() -> None:
     for entry, paths, err in ((decode_entry, by_path, decode_err),
                               (llr_entry, llr_by_path, llr_err),
                               (scl_entry, SCL_BY_PATH, scl_err),
-                              (serving_entry, SERVING_BY_PATH, serving_err)):
+                              (serving_entry, SERVING_BY_PATH, serving_err),
+                              (sync_entry, SYNC_BY_PATH, sync_err)):
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
         entry["max_abs_err"] = err
     print(json.dumps({"kernels": [decode_entry, llr_entry, scl_entry,
-                                  serving_entry]}), flush=True)
+                                  serving_entry, sync_entry]}), flush=True)
 
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -17,7 +17,8 @@ Compat (``_batch_verify_stage`` + ``BatchVerifier``):
   resolves clips cut past the PN table with the extended-counter pass.
 
 v2 / robust profile (``_batch_verify_stage_v2`` + ``RobustBatchVerifier``):
-oversampled 504-tap sync (bf16 operands, float32 sums), one LS product
+oversampled 504-tap sync (bf16 operands, float32 sums; one launch of
+``csrc/sync_xcorr.cu`` on the card, its lag mask included), one LS product
 against both lam profiles (no refinement), the standard polar info set,
 and a ladder after the hard pass -- futility gate, staged SCL list decode
 of each failing clip's top-4 soft rows, extended counters.  The soft rows
@@ -132,12 +133,21 @@ def _sync_stage(x, n_valid, templates, peaks, span, compute_dtype=None,
     """4-band sync correlation over the valid lags -> NMS peaks (B, 4, P).
 
     A lag is valid while a whole frame of ``span`` samples fits before
-    ``n_valid``; peaks are at least ``span // 2`` apart.
+    ``n_valid``; peaks are at least ``span // 2`` apart.  The bf16 sync is
+    ``demod.sync_xcorr`` (the kernel on a card, its plain version on the
+    CPU), which masks the lags itself; every float32 sync is
+    ``normalized_xcorr``.
     """
-    corr = demod.normalized_xcorr(x, templates, compute_dtype=compute_dtype)
-    _mark(marks, "sync_xcorr")
-    lag = torch.arange(corr.shape[-1], device=x.device)
-    corr.masked_fill_(lag > (n_valid[:, None, None] - span), float("-inf"))
+    if compute_dtype == torch.bfloat16:
+        corr = demod.sync_xcorr(x, templates, n_valid, span)
+        _mark(marks, "sync_xcorr")
+    else:
+        corr = demod.normalized_xcorr(x, templates,
+                                      compute_dtype=compute_dtype)
+        _mark(marks, "sync_xcorr")
+        lag = torch.arange(corr.shape[-1], device=x.device)
+        corr.masked_fill_(lag > (n_valid[:, None, None] - span),
+                          float("-inf"))
     out = demod.topk_nms(corr, peaks, span // 2)
     _mark(marks, "sync_nms")
     return out

@@ -27,6 +27,7 @@ ever broadcast into memory.
 """
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -38,7 +39,7 @@ from scipy.signal import lfilter
 from echoseal_torch.core.bandplan import BAND_PLAN
 from echoseal_torch.core.params import FRAME_LEN, HDR_BITS, HDR_L, HDR_REPEAT, PRE_L
 from echoseal_torch.core.sequences import bits_to_bpsk, mls63
-from echoseal_torch.ops import filters
+from echoseal_torch.ops import build, filters
 
 # Demod window: direct uses the exact frame; cascade appends the RX tail.
 CASCADE_TAIL = 512
@@ -206,6 +207,136 @@ def normalized_xcorr(x: torch.Tensor, templates: torch.Tensor,
     del x2
     energy = torch.sqrt(torch.clamp(e2, min=0.0)) + 1e-12
     return corr.div_(energy).reshape(*lead, nb, corr.shape[-1])
+
+
+# ----------------------------------------------------- the v2 sync kernel
+# Tile decomposition of ``csrc/sync_xcorr.cu``: GEMM row q holds the
+# SYNC_LAGS_PER_ROW lags from SYNC_LAGS_PER_ROW * q and reads K samples,
+# K = 16 * ceil((L + SYNC_LAGS_PER_ROW - 1) / 16) <= 16 * SYNC_MAX_STEPS.
+SYNC_LAGS_PER_ROW = 8
+SYNC_MAX_STEPS = 32
+SYNC_MAX_L = 16 * SYNC_MAX_STEPS - SYNC_LAGS_PER_ROW + 1
+
+
+def _sync_depth(L: int) -> int:
+    """K: the GEMM depth for templates of length ``L``."""
+    return 16 * -(-(L + SYNC_LAGS_PER_ROW - 1) // 16)
+
+
+def _sync_toeplitz(templates: torch.Tensor) -> torch.Tensor:
+    """(K, 5, P) float32: ``B[kappa, b, r] = bf16(tmpl[b, kappa - r])``,
+    0 outside [0, L); band 4 is the energy's ones."""
+    L = templates.shape[-1]
+    P = SYNC_LAGS_PER_ROW
+    rows = torch.cat([templates.to(torch.bfloat16).to(torch.float32),
+                      torch.ones((1, L), device=templates.device)])
+    k = torch.arange(_sync_depth(L), device=templates.device)
+    i = k[:, None] - torch.arange(P, device=templates.device)[None, :]
+    ok = (i >= 0) & (i < L)
+    taps = rows[:, i.clamp(0, L - 1)]                     # (5, K, P)
+    return torch.where(ok, taps, 0.0).transpose(0, 1)
+
+
+def sync_xcorr_plain(x: torch.Tensor, templates: torch.Tensor,
+                     n_valid: torch.Tensor, span: int) -> torch.Tensor:
+    """The kernel's function in torch ops, along its tile decomposition.
+
+    ``x`` (B, T) float32, ``templates`` (4, L), ``n_valid`` (B,).  Returns
+    (B, 4, T - L + 1): ``normalized_xcorr(x, templates, torch.bfloat16)``
+    with the lags past ``n_valid - span`` at -inf.  Row q of the GEMM is
+    ``x[P q : P q + K]`` (bf16, zero past T), so ``corr[b, P q + r] =
+    A[q] @ B[:, b, r]`` (``_sync_toeplitz``); the energy is the same product
+    on bf16(x * x) with the ones band.  Rows go 16 at a time, so the
+    (rows, Q, K) operands stay near 1.3 GB at the v2 stage's width.
+    """
+    B, T = x.shape
+    L = templates.shape[-1]
+    P = SYNC_LAGS_PER_ROW
+    n_out = T - L + 1
+    K = _sync_depth(L)
+    Q = -(-n_out // P)
+    toe = _sync_toeplitz(templates)
+    w_corr = toe[:, :-1].reshape(K, -1)                  # (K, 4 P)
+    w_e2 = toe[:, -1]                                     # (K, P)
+    out = torch.empty((B, templates.shape[0], n_out), device=x.device)
+    lag = torch.arange(n_out, device=x.device)
+    for r0 in range(0, B, 16):
+        xc = F.pad(x[r0:r0 + 16], (0, P * (Q - 1) + K - T))
+        xb = xc.to(torch.bfloat16).to(torch.float32).unfold(-1, K, P)
+        x2 = (xc * xc).to(torch.bfloat16).to(torch.float32).unfold(-1, K, P)
+        corr = (xb @ w_corr).reshape(-1, Q, 4, P)        # (R, Q, 4, P)
+        e2 = (x2 @ w_e2).reshape(-1, Q * P)[:, :n_out]
+        corr = corr.permute(0, 2, 1, 3).reshape(-1, 4, Q * P)[..., :n_out]
+        energy = torch.sqrt(torch.clamp(e2, min=0.0)) + 1e-12
+        corr = corr / energy[:, None, :]
+        bad = lag > (n_valid[r0:r0 + 16, None, None] - span)
+        out[r0:r0 + 16] = corr.masked_fill(bad, float("-inf"))
+    return out
+
+
+@lru_cache(maxsize=1)
+def _sync_launcher():
+    fn = build.load("sync_xcorr").sync_xcorr_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sync_xcorr(x: torch.Tensor, templates: torch.Tensor,
+               n_valid: torch.Tensor, span: int) -> torch.Tensor:
+    """The v2 batch sync: ``sync_xcorr_plain``'s function, masked lags -inf.
+
+    ``x`` (B, T) float32 with unit stride along T, ``templates`` (4, L)
+    float32 contiguous with L <= ``SYNC_MAX_L``, ``n_valid`` (B,) int32 or
+    int64, T >= L.  CUDA tensors go through ``csrc/sync_xcorr.cu`` (launched
+    on the current stream, counted in ``build.LAUNCHES["sync_xcorr"]``);
+    CPU tensors through ``sync_xcorr_plain``.  Anything else raises; there
+    is no fallback to ``conv1d``.
+    """
+    tensors = (x, templates, n_valid)
+    if all(t.device.type == "cpu" for t in tensors):
+        return sync_xcorr_plain(x, templates, n_valid, span)
+    dev = x.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            "sync_xcorr: tensors on "
+            f"{', '.join(str(t.device) for t in tensors)}; need all on one "
+            "CUDA device or all on the CPU")
+    if x.dtype != torch.float32 or templates.dtype != torch.float32 or \
+            n_valid.dtype not in (torch.int32, torch.int64):
+        raise ValueError(
+            f"sync_xcorr: dtypes {x.dtype}, {templates.dtype}, "
+            f"{n_valid.dtype}; need float32 x and templates, int32/int64 "
+            "n_valid")
+    B, T = x.shape if x.ndim == 2 else (-1, -1)
+    L = templates.shape[-1]
+    if x.ndim != 2 or templates.shape != (4, L) or \
+            not 1 <= L <= SYNC_MAX_L or T < L or n_valid.shape != (B,):
+        raise ValueError(
+            f"sync_xcorr: shapes {tuple(x.shape)}, {tuple(templates.shape)}, "
+            f"{tuple(n_valid.shape)}; need (B, T), (4, L) and (B,) with "
+            f"1 <= L <= min(T, {SYNC_MAX_L})")
+    if x.stride(-1) != 1 or not templates.is_contiguous() or \
+            not n_valid.is_contiguous():
+        raise ValueError("sync_xcorr: x needs unit stride along T, "
+                         "templates and n_valid must be contiguous")
+    if B >= 2 ** 31 or T >= 2 ** 31:
+        raise ValueError("sync_xcorr: more than 2**31 - 1 rows or samples")
+    out = torch.empty((B, 4, T - L + 1), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _sync_launcher()(
+            x.data_ptr(), x.stride(0), T, templates.data_ptr(), L,
+            n_valid.data_ptr(), int(n_valid.dtype == torch.int64), int(span),
+            out.data_ptr(), B, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sync_xcorr kernel launch failed: cudaError {rc}")
+    build.LAUNCHES["sync_xcorr"] += 1
+    return out
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,7 @@ import torch
 from echoseal_torch.core.params import FRAME_LEN, HDR_L, PRE_L
 from echoseal_torch.core.profiles import ROBUST, polar_spec_standard, \
     profile_spec
-from echoseal_torch.ops import build, llr, polar, scl
+from echoseal_torch.ops import build, demod, llr, polar, scl
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 SPECS = {"compat": polar.polar_spec, "standard-448": polar_spec_standard}
@@ -53,11 +53,13 @@ def test_payload_llr_rejects_other_devices():
 
 
 def test_kernel_sources_found():
-    assert build.sources() == ["payload_decode", "payload_llr", "scl_decode"]
+    assert build.sources() == ["payload_decode", "payload_llr", "scl_decode",
+                               "sync_xcorr"]
     assert build.library_path("payload_llr").name.startswith("libpayload_llr-")
     assert build.library_path("payload_decode").name.startswith(
         "libpayload_decode-")
     assert build.library_path("scl_decode").name.startswith("libscl_decode-")
+    assert build.library_path("sync_xcorr").name.startswith("libsync_xcorr-")
 
 
 def _decode_inputs(n, device, spec, seed=0, lead=None, m=64):
@@ -543,3 +545,51 @@ def test_scl_serving_refusals_on_card():
     empty = scl.scl_decode_serving_kernel(x[:0], spec, 8)
     assert empty["info_bits"].shape == (0, 8, spec.info_len)
     assert dict(build.LAUNCHES) == before
+
+
+# (rows, T, span, n_valid dtype): one row; rows ragged against the kernel's
+# 2048-lag tiles with a row below a frame; the v2 stage's frame and T = L
+SYNC_SHAPES = [(1, 20_011, 9_720, torch.int32), (7, 12_345, 1_008, torch.int64),
+               (3, 30_001, 9_720, torch.int32), (2, 504, 1_008, torch.int32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,T,span,nv_dtype", SYNC_SHAPES)
+def test_sync_xcorr_kernel_on_card(rows, T, span, nv_dtype):
+    """The v2 sync kernel against its plain version on the card: corr
+    within 1e-5 (the same exact products, summed in another order), -inf
+    at exactly the lags past ``n_valid - span``; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from echoseal_torch.models import robust
+
+    tpl = torch.from_numpy(robust.robust_templates(48_000, 8)).cuda()
+    rng = np.random.default_rng(rows * T)
+    x = torch.from_numpy((0.1 * rng.standard_normal((rows, T))
+                          ).astype(np.float32)).cuda()
+    nv = torch.from_numpy(rng.integers(min(span, T), T + 1, rows)).to(
+        device="cuda", dtype=nv_dtype)
+    nv[0] = span - 1 if rows > 1 else nv[0]
+    before = build.LAUNCHES["sync_xcorr"]
+    got = demod.sync_xcorr(x, tpl, nv, span)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["sync_xcorr"] == before + 1
+    want = demod.sync_xcorr_plain(x, tpl, nv, span)
+    lag = torch.arange(T - 503, device="cuda")
+    bad = (lag > (nv.long()[:, None] - span))[:, None, :].expand_as(got)
+    assert torch.equal(torch.isneginf(got), bad)
+    if (~bad).any():
+        assert float((got - want)[~bad].abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_sync_xcorr_refuses_long_templates():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    x = torch.zeros(2, 4096, device="cuda")
+    nv = torch.full((2,), 4096, dtype=torch.int32, device="cuda")
+    tpl = torch.zeros(4, demod.SYNC_MAX_L + 1, device="cuda")
+    with pytest.raises(ValueError, match="shapes"):
+        demod.sync_xcorr(x, tpl, nv, 1008)
+    with pytest.raises(ValueError, match="shapes"):
+        demod.sync_xcorr(x[:, :100], tpl[:, :200], nv, 1008)
