@@ -60,7 +60,7 @@ def main() -> int:
     dev = torch.device("cuda")
     entry = cell["traffic"]["entry"]
     verifier = harness.build_system(cell["config"], entry, dev)
-    Runner = harness.RUNNERS[entry]
+    Runner = harness.runner_class(entry, a.root)
     runs = [(int(s), False) for s in a.seeds.split(",") if s] + \
         [(int(s), True) for s in a.control_seeds.split(",") if s] + \
         [(int(s), "scl") for s in a.scl_control_seeds.split(",") if s]

@@ -5,21 +5,26 @@ waveform, its transmitter and the rows the verifier takes) and a traffic
 file (``portbench/traffic/<name>.json``: clips per batch, clip length,
 distinct batches, the channel), and makes every input from ``--seed``
 with the frozen transmitter under ``portbench/ref``.  The same seed gives
-the same inputs; every seed gives the same sizes.
+the same inputs; every seed gives the same sizes.  A host signal and a
+channel are found by their ``kind`` (``portbench/hosts/<kind>.py``,
+``portbench/channels/<kind>.py`` under ``root``).
 """
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from portbench import named
 from portbench.ref.bandplan import hop_schedule
-from portbench.ref.channels import codec_sim
 from portbench.ref.crypto import SecureChannel
 from portbench.ref.params import FRAME_LEN
 from portbench.ref.profiles import ROBUST
 from portbench.ref.tx import RobustEmbedder, frames_np
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @dataclasses.dataclass
@@ -37,20 +42,18 @@ class Stream:
     samples: np.ndarray          # float32
     nonce: bytes                 # the session nonce every frame carries
     span: int                    # samples per frame
+    fs: int                      # sample rate after the channel
 
 
-def _host(spec: dict | None, n: int, fs: int) -> np.ndarray:
+def _host(spec: dict | None, n: int, fs: int, rng: np.random.Generator,
+          root: Path) -> np.ndarray:
     if spec is None:
         return np.zeros(n, np.float32)
-    if spec["kind"] == "tone":
-        t = np.arange(n) / fs
-        return (spec["amp"] * np.sin(2 * np.pi * spec["hz"] * t)
-                ).astype(np.float32)
-    raise ValueError(f"unknown host {spec['kind']!r}")
+    return named.load("hosts", spec["kind"], root).make(spec, n, fs, rng)
 
 
-def make_stream(config: dict, traffic: dict, rng: np.random.Generator
-                ) -> Stream:
+def make_stream(config: dict, traffic: dict, rng: np.random.Generator,
+                root: Path = ROOT) -> Stream:
     """The seeded TX stream of one session, through the traffic's channel."""
     key = bytes.fromhex(config["key_hex"])
     tx, fs = config["tx"], config["fs"]
@@ -64,16 +67,15 @@ def make_stream(config: dict, traffic: dict, rng: np.random.Generator
     elif tx["kind"] == "v2_stream":
         emb = RobustEmbedder(key, rng=rng)
         nonce = emb._session_nonce
-        x = emb.process(_host(tx.get("host"), int(tx["stream_s"] * fs), fs))
+        x = emb.process(_host(tx.get("host"), int(tx["stream_s"] * fs), fs,
+                              rng, root))
         span = ROBUST.span
     else:
         raise ValueError(f"unknown tx {tx['kind']!r}")
     ch = traffic.get("channel")
     if ch is not None:
-        if ch["kind"] != "codec_sim":
-            raise ValueError(f"unknown channel {ch['kind']!r}")
-        x = codec_sim(x, ch["bitrate_kbps"], fs)
-    return Stream(np.ascontiguousarray(x, np.float32), nonce, span)
+        x, fs = named.load("channels", ch["kind"], root).apply(x, ch, fs, rng)
+    return Stream(np.ascontiguousarray(x, np.float32), nonce, span, fs)
 
 
 def cut_starts(stream: Stream, n: int, T: int, align: str,
@@ -85,12 +87,12 @@ def cut_starts(stream: Stream, n: int, T: int, align: str,
     return rng.integers(0, stream.samples.size - T, n)
 
 
-def make_batches(config: dict, traffic: dict, seed: int, device
-                 ) -> tuple[Stream, list[Batch]]:
+def make_batches(config: dict, traffic: dict, seed: int, device,
+                 root: Path = ROOT) -> tuple[Stream, list[Batch]]:
     """The stream and the traffic's distinct batches, on ``device``."""
     rng = np.random.default_rng(seed)
-    stream = make_stream(config, traffic, rng)
-    fs = config["fs"]
+    stream = make_stream(config, traffic, rng, root)
+    fs = stream.fs
     T = int(round(traffic["clip_s"] * fs))
     B = traffic["clips"]
     dev_stream = torch.as_tensor(stream.samples, device=device)
@@ -115,13 +117,13 @@ class Cut:
     start: int
 
 
-def make_cuts(config: dict, traffic: dict, seed: int
+def make_cuts(config: dict, traffic: dict, seed: int, root: Path = ROOT
               ) -> tuple[Stream, list[Cut], np.ndarray]:
     """The stream, a pool of distinct cuts, and the order of requests over
     the pool (each cut once per pass, the passes in seeded orders)."""
     rng = np.random.default_rng(seed)
-    stream = make_stream(config, traffic, rng)
-    T = int(round(traffic["clip_s"] * config["fs"]))
+    stream = make_stream(config, traffic, rng, root)
+    T = int(round(traffic["clip_s"] * stream.fs))
     align = traffic.get("align", config["tx"]["align"])
     n = traffic["pool"]
     starts = cut_starts(stream, n, T, align, rng)

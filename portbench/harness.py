@@ -3,26 +3,25 @@ run's layers, and the comparison that decides ``correct``.
 
 Everything a cell needs is found by name: ``BENCHMARK.json`` names the
 cell's configuration file and traffic mix, ``portbench/traffic/<traffic>.json``
-holds the mix, ``portbench/limits/<workload>.json`` the limits of its
-comparison, and ``portbench/metrics/<metric>.py`` the reader of each
-per-layer metric.  A new cell or metric is new files and entries.
+holds the mix, ``portbench/runners/<entry>.py`` the runner of the mix's
+``entry`` (with its comparison), ``portbench/limits/<workload>.json`` the
+limits of that comparison, ``portbench/metrics/<metric>.py`` the reader
+of each per-layer metric, and ``gen`` finds the hosts and channels.  A new
+cell, metric or deployment is new files and entries.
 """
 from __future__ import annotations
 
 import importlib
-import importlib.util
 import json
 import statistics
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
-from portbench import check, gen, trace
+from portbench import named, trace
 from portbench.ref import verify as ref
-from portbench.ref.bandplan import BAND_PLAN
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "portbench"
@@ -46,7 +45,7 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
     end = [m for m in spec["end_to_end"] if reported(m)]
     moved = {m["name"] for m in end}
     return dict(
-        cell=cell, spec=spec,
+        cell=cell, spec=spec, root=root, ranks=None,
         config=json.loads((root / cfg["file"]).read_text()),
         traffic=json.loads((pkg / "traffic" / f"{cell['traffic']}.json")
                            .read_text()),
@@ -58,12 +57,13 @@ def load_cell(name: str, root: Path = ROOT) -> dict:
 
 def metric_reader(name: str, root: Path = ROOT):
     """``portbench/metrics/<name>.py``'s ``read(ctx)``."""
-    path = root / "portbench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return named.load("metrics", name, root).read
+
+
+def runner_class(entry: str, root: Path = ROOT):
+    """``portbench/runners/<entry>.py``'s ``Runner`` (the interface:
+    ``portbench/runners/__init__.py``)."""
+    return named.load("runners", entry, root).Runner
 
 
 def build_system(config: dict, entry: str, device):
@@ -83,182 +83,6 @@ def settings(config: dict, entry: str) -> dict:
 
 def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
-
-
-_CAP: dict = {}
-
-
-def _hook(verifier) -> None:
-    """Keep each call's stage outputs and ladder rungs in ``_CAP`` for the
-    check: the verifier's ``run_device`` and the ladder's
-    ``pipeline.scl_decode_serving``, each wrapped once."""
-    from echoseal_torch.models import pipeline
-
-    if not hasattr(verifier, "_portbench_run"):
-        run = verifier._portbench_run = verifier.run_device
-
-        def run_device(*a, **k):
-            _CAP["out"] = run(*a, **k)
-            return _CAP["out"]
-
-        verifier.run_device = run_device
-    if not hasattr(pipeline.scl_decode_serving, "_portbench"):
-        decode = pipeline.scl_decode_serving
-
-        def scl_decode_serving(llr, spec, list_size):
-            res = decode(llr, spec, list_size)
-            _CAP.setdefault("rungs", []).append(
-                (llr.shape[0], list_size, res))
-            return res
-
-        scl_decode_serving._portbench = True
-        pipeline.scl_decode_serving = scl_decode_serving
-
-
-class BatchCell:
-    """A closed loop of ``verify_batch`` calls, one client, over the
-    traffic's distinct batches in turn."""
-
-    entry = "batch"
-
-    def __init__(self, cell: dict, seed: int, device, verifier=None) -> None:
-        self.config, self.traffic = cell["config"], cell["traffic"]
-        self.device = device
-        t0 = time.perf_counter()
-        self.verifier = verifier or build_system(self.config, "batch", device)
-        t1 = time.perf_counter()
-        self.stream, self.batches = gen.make_batches(
-            self.config, self.traffic, seed, device)
-        self.setup_parts = {"verifier_s": t1 - t0,
-                            "inputs_s": time.perf_counter() - t1}
-        self.T = int(round(self.traffic["clip_s"] * self.config["fs"]))
-        self.captures: dict[int, dict] = {}
-        _hook(self.verifier)
-
-    def call(self, i: int):
-        """One request: batch ``i % batches``; returns (batch, verdicts,
-        accepts) and keeps the call's stage outputs as that batch's."""
-        b = i % len(self.batches)
-        batch = self.batches[b]
-        _CAP.clear()
-        if hasattr(self.verifier, "scl_rungs"):
-            self.verifier.scl_rungs = []
-        details: dict = {}
-        with torch.profiler.record_function("portbench.verify_batch"):
-            verdicts = self.verifier.verify_batch(batch.clips, batch.n_valid,
-                                                  details=details)
-        self.captures[b] = dict(_CAP)
-        accepts = {i: (d.session_nonce, int(d.frame_ctr), d.stage)
-                   for i, d in details.items()}
-        return b, np.asarray(verdicts, bool), accepts
-
-    def warm_up(self) -> None:
-        for i in range(len(self.batches)):
-            self.call(i)
-
-    def work(self, b: int) -> float:
-        return self.batches[b].seconds
-
-    def check(self, records: list) -> dict:
-        """Every comparison number of the cell (after the window)."""
-        wave = self.config["waveform"]
-        tab = reference_tables(self.config, "batch", self.device)
-        caps = {}
-        for b, c in self.captures.items():
-            rungs = [(n, L, ref.crc_paths(res)) for n, L, res
-                     in c.get("rungs", [])]
-            caps[b] = dict(out=c["out"], rungs=rungs)
-        st = settings(self.config, "batch")
-        return check.compare(wave, tab, self.batches, self.stream, records,
-                             caps, st.get("list_size"), st["peaks"], self.T)
-
-    def free_program(self) -> None:
-        """Drop the program's tables; the captured outputs stay."""
-        self.verifier.tables = None
-
-    def sync_rows(self):
-        for b in self.batches:
-            yield b.clips, b.n_valid
-
-
-class SingleCell:
-    """A closed loop of single-clip requests, one client: each request one
-    cut of the pool, as numpy host audio, through one detector built in
-    set-up (the way a stream monitor holds one)."""
-
-    entry = "single"
-
-    def __init__(self, cell: dict, seed: int, device, verifier=None) -> None:
-        from echoseal_torch.models import detector
-
-        self.config, self.traffic = cell["config"], cell["traffic"]
-        self.device = device
-        t0 = time.perf_counter()
-        self.verifier = verifier or build_system(self.config, "single",
-                                                 device)
-        t1 = time.perf_counter()
-        self.stream, self.cuts, self.order = gen.make_cuts(
-            self.config, self.traffic, seed)
-        self.setup_parts = {"verifier_s": t1 - t0,
-                            "inputs_s": time.perf_counter() - t1}
-        self.T = int(round(self.traffic["clip_s"] * self.config["fs"]))
-        self.fs = self.config["fs"]
-        self.captures: dict[int, dict] = {}
-        self.batches = self.cuts          # the unit a traced run covers once
-        if not hasattr(detector._scan_stage, "_portbench"):
-            scan = detector._scan_stage
-
-            def _scan_stage(*a, **k):
-                _CAP["out"] = scan(*a, **k)
-                return _CAP["out"]
-
-            _scan_stage._portbench = True
-            detector._scan_stage = _scan_stage
-
-    def call(self, i: int):
-        c = int(self.order[i % self.order.size])
-        _CAP.clear()
-        with torch.profiler.record_function("portbench.verify_detailed"):
-            res = self.verifier.verify_detailed(self.cuts[c].audio, self.fs)
-        if "out" in _CAP:
-            o = _CAP["out"]
-            self.captures[c] = {k: o[k] for k in ("peak_idx", "peak_val",
-                                                  "chips_d")}
-        accepts = {}
-        if res.authentic:
-            band = [tuple(b) for b in BAND_PLAN].index(tuple(res.band))
-            accepts[0] = (res.session_nonce, int(res.frame_ctr), res.stage,
-                          int(res.peak_pos), band)
-        return c, np.array([bool(res.authentic)]), accepts
-
-    def warm_up(self) -> None:
-        """One pass over the pool: every shape and path the requests use."""
-        for i in range(len(self.cuts)):
-            self.call(i)
-
-    def work(self, c: int) -> float:
-        return self.T / self.fs
-
-    def check(self, records: list) -> dict:
-        cfg = self.config
-        tab = reference_tables(cfg, "single", self.device)
-        return check.compare_single(tab, self.cuts, self.stream, records,
-                                    self.captures,
-                                    settings(cfg, "single")["peaks"], self.T)
-
-    def free_program(self) -> None:
-        self.verifier.tables = None
-
-    def sync_rows(self):
-        """Each cut zero-padded as the scan pads it, with its length."""
-        for cut in self.cuts:
-            x = torch.zeros(1, ref.pad_bucket(max(self.T, 2 * 1215 + 512)),
-                            device=self.device)
-            x[0, :self.T] = torch.as_tensor(cut.audio, device=self.device)
-            yield x, torch.tensor([self.T], device=self.device)
-
-
-RUNNERS = {"batch": BatchCell, "single": SingleCell}
 
 
 def reference_tables(config: dict, entry: str, device) -> dict:
@@ -300,14 +124,20 @@ def quantile(xs: list[float], q: float) -> float:
 
 
 def end_to_end(names: list[str], win: dict, setup_s: float) -> dict:
+    """The cell's end-to-end metrics of one window.  ``audio_s_per_card_s``
+    is the window's work over ``win["busy_s"]``, the seconds in which an
+    operation ran on the card (``trace.device_busy``), and is left out of
+    a run with no card."""
     vals = {"setup_s": setup_s}
     if "audio_s_per_s" in names:
         vals["audio_s_per_s"] = win["work"] / win["window_s"]
+    if "audio_s_per_card_s" in names and win.get("busy_s"):
+        vals["audio_s_per_card_s"] = win["work"] / win["busy_s"]
     if "clip_p50_ms" in names:
         vals["clip_p50_ms"] = 1e3 * statistics.median(win["latencies"])
     if "clip_p95_ms" in names:
         vals["clip_p95_ms"] = 1e3 * quantile(win["latencies"], 0.95)
-    return {n: vals[n] for n in names}
+    return {n: vals[n] for n in names if n in vals}
 
 
 def device_info(device, chips: int) -> dict:
@@ -319,27 +149,44 @@ def device_info(device, chips: int) -> dict:
             "memory_peak_bytes": int(torch.cuda.max_memory_allocated())}
 
 
+def build(name: str, seed: int, device, overrides: dict | None = None,
+          root: Path = ROOT, ranks=None) -> tuple[dict, object]:
+    """Cell ``name`` with ``overrides`` on its traffic, and its runner."""
+    cell = load_cell(name, root)
+    cell["traffic"] = dict(cell["traffic"], **(overrides or {}))
+    cell["ranks"] = ranks
+    return cell, runner_class(cell["traffic"]["entry"], root)(
+        cell, seed, device)
+
+
 def run(name: str, seed: int, seconds: float, traced: bool, *,
         t_start: float, device=None, overrides: dict | None = None,
-        control: bool = False, fault=None, root: Path = ROOT) -> dict:
+        control: bool = False, fault=None, root: Path = ROOT,
+        ranks=None) -> dict:
     """One run of cell ``name``; returns the result line's object.
 
     ``overrides`` replaces traffic keys (tests run at small sizes),
     ``control`` runs the program with TF32 products (the comparison's
     control), ``fault(runner)`` breaks the timed path (the tests' faults),
-    ``root`` holds the ``BENCHMARK.json`` that names the cell.
+    ``root`` holds the ``BENCHMARK.json`` that names the cell, ``ranks``
+    is rank 0's ``launch.Ranks`` on a cell of N > 1 cards (each call is
+    then stepped on every rank: ``launch.lead``).
+
+    A ``--trace 0`` run on the card of a cell with an end-to-end metric
+    from the device trace runs its window under ``trace.device_busy``.
 
     ``failed`` counts the clips whose answer the comparison calls wrong
     (``check``'s ``wrong``); ``rejected`` the clips the verifier rejected,
     which on an impaired channel the reference rejects too.
     """
     t_entry = time.perf_counter()
-    cell = load_cell(name, root)
-    cell["traffic"] = dict(cell["traffic"], **(overrides or {}))
     device = torch.device(device or "cuda")
+    cell, runner = build(name, seed, device, overrides, root, ranks)
     chips = cell["cell"]["chips"]
-    entry = cell["traffic"]["entry"]
-    runner = RUNNERS[entry](cell, seed, device)
+    if ranks is not None:
+        from portbench import launch
+
+        launch.lead(runner, ranks)
     if control:
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.backends.cudnn.allow_tf32 = True
@@ -361,10 +208,17 @@ def run(name: str, seed: int, seconds: float, traced: bool, *,
             ctx["rungs"].append(list(getattr(r.verifier, "scl_rungs", [])))
 
         Timer.registry.clear()          # global: holds every earlier call
-    win = window(runner, seconds, on_call)
+    if not traced and device.type == "cuda" and any(
+            m["source"] == "device_trace" for m in cell["end_to_end"]):
+        win, busy_s = trace.device_busy(
+            lambda: window(runner, seconds, on_call))
+        win["busy_s"] = busy_s
+    else:
+        win = window(runner, seconds, on_call)
     if traced:
         ctx["spans"] = {k: list(v) for k, v in Timer.registry.items()}
         ctx["requests"] = win["calls"]
+        ctx["window"] = win
     dev = device_info(device, chips)
     metrics: dict = {}
     breakdown = None

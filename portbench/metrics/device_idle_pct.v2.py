@@ -1,0 +1,8 @@
+"""``device_idle_pct.batch`` in the v2 cells, where it moves
+``audio_s_per_card_s``: the reader of ``device_idle_pct.batch.py``."""
+from pathlib import Path
+
+from portbench import named
+
+ROOT = Path(__file__).resolve().parents[2]
+read = named.load("metrics", "device_idle_pct.batch", ROOT).read

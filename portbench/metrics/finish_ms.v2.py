@@ -1,0 +1,8 @@
+"""``finish_ms`` in the v2 cells, where it moves
+``audio_s_per_card_s``: the reader of ``finish_ms.py``."""
+from pathlib import Path
+
+from portbench import named
+
+ROOT = Path(__file__).resolve().parents[2]
+read = named.load("metrics", "finish_ms", ROOT).read

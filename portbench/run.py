@@ -7,7 +7,8 @@ Prints one JSON line last on standard output (``correct``, ``attempted``,
 ``failed``, ``metrics``, ``device``, with ``--trace 1`` ``breakdown``, and
 ``checks``: each compared number beside its limit), and the same checks
 as the last lines of standard error.  Without CUDA cards enough for the
-cell it prints no result and exits 2.
+cell it prints no result and exits 2.  A cell of one card runs in this
+process; a cell of N > 1 cards in N processes, one a card (``launch``).
 """
 from __future__ import annotations
 
@@ -34,7 +35,11 @@ def _caches() -> None:
     os.environ["USE_FLAX"] = "0"
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, device: str | None = None, root: Path = ROOT,
+         group_timeout_s: float | None = None) -> int:
+    """The command line's run.  ``device="cpu"`` (the tests' only way in)
+    runs on the CPU: ranks of a multi-card cell in a ``gloo`` group whose
+    timeout is ``group_timeout_s``; ``root`` holds the ``BENCHMARK.json``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -47,14 +52,25 @@ def main(argv=None) -> int:
 
     from portbench import harness
 
-    need = harness.load_cell(args.workload)["cell"]["chips"]
+    need = harness.load_cell(args.workload, root)["cell"]["chips"]
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if have < need:
+    if device is None and have < need:
         print(f"portbench: needs {need} CUDA card(s), found {have}",
               file=sys.stderr)
         return 2
-    out = harness.run(args.workload, args.seed, args.seconds,
-                      bool(args.trace), t_start=T_START)
+    if need == 1:
+        out = harness.run(args.workload, args.seed, args.seconds,
+                          bool(args.trace), t_start=T_START, device=device,
+                          root=root)
+    else:
+        from portbench import launch
+
+        out = launch.run(args.workload, args.seed, args.seconds,
+                         bool(args.trace), chips=need, t_start=T_START,
+                         device_type=device or "cuda", root=root,
+                         timeout_s=group_timeout_s or launch.GROUP_TIMEOUT_S)
+        if isinstance(out, int):
+            return out
     bad = harness.forbidden_modules()
     if bad:
         print(f"portbench: loaded {', '.join(bad)}", file=sys.stderr)

@@ -24,7 +24,13 @@ SMALL = {"clips": 3, "batches": 2}
 def test_every_cell_resolves(name, single_root):
     root = single_root if name == SINGLE else harness.ROOT
     cell = harness.load_cell(name, root)
-    assert cell["traffic"]["entry"] in ("batch", "single")
+    entry = cell["traffic"]["entry"]
+    assert (root / "portbench" / "runners" / f"{entry}.py").is_file()
+    runner = harness.runner_class(entry, root)
+    assert runner.entry == entry
+    for attr in ("call", "warm_up", "work", "check", "free_program",
+                 "sync_rows"):
+        assert callable(getattr(runner, attr))
     assert set(cell["limits"]) >= {"verdict_mismatch", "untrue_accept"}
     assert {m["name"] for m in cell["end_to_end"]} >= {"setup_s"}
     for m in cell["per_layer"]:
@@ -98,6 +104,32 @@ def test_rate_is_all_work_over_all_time(monkeypatch):
     vals = harness.end_to_end(["audio_s_per_s", "setup_s"], win, 3.0)
     assert vals["audio_s_per_s"] == pytest.approx(36.0 / 1.2)
     assert vals["setup_s"] == 3.0
+
+
+def test_card_rate_is_all_work_over_busy_time():
+    win = {"work": 36.0, "window_s": 1.2, "busy_s": 0.5}
+    vals = harness.end_to_end(["audio_s_per_card_s", "setup_s"], win, 3.0)
+    assert vals["audio_s_per_card_s"] == pytest.approx(72.0)
+    # a run with no card has no busy time: the metric is left out
+    vals = harness.end_to_end(["audio_s_per_card_s", "setup_s"],
+                              {"work": 36.0, "window_s": 1.2}, 3.0)
+    assert vals == {"setup_s": 3.0}
+
+
+def test_wall_rate_of_the_traced_window():
+    read = harness.metric_reader("audio_s_per_s.v2")
+    assert read({"window": {"work": 36.0, "window_s": 1.2}}) == \
+        pytest.approx(30.0)
+    assert read({}) is None
+
+
+@pytest.mark.parametrize("name", ["sync_ms", "demod_ms", "finish_ms",
+                                  "host_wait_ms", "aead_open_ms",
+                                  "device_idle_pct.batch"])
+def test_v2_twin_reads_as_its_reader(name):
+    """Each ``<metric>.v2`` of the v2 cells reads as ``<metric>``."""
+    twin = "device_idle_pct.v2" if name.endswith(".batch") else f"{name}.v2"
+    assert harness.metric_reader(twin) is harness.metric_reader(name)
 
 
 def test_p95_of_all_requests():

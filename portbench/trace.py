@@ -1,7 +1,8 @@
 """The traced run's readings: CUDA-event stage times of ``run_device``,
 the host finish, and a ``torch.profiler`` window over calls of the cell's
 entry (busy and idle time of the device, kernels by name, idle gaps by
-what the host was doing)."""
+what the host was doing); and the device's busy seconds of a measured
+window, for end-to-end metrics taken from the device trace."""
 from __future__ import annotations
 
 import time
@@ -76,6 +77,23 @@ def summarize(dev: list, cpu: list, w0: int, w1: int) -> dict:
                 by_name.items(), key=lambda kv: -kv[1])[:10]],
             "idle_gaps": [[label((a + b) // 2), (b - a) / 1e9]
                           for a, b in gaps[:10]]}}
+
+
+def device_busy(fn):
+    """``fn()`` under ``torch.profiler`` with device activity only (no host
+    ops are recorded); returns ``fn``'s result and the seconds in which a
+    kernel, copy or set ran on the card from the profiler's start to the
+    synchronize after ``fn`` (the union of CUPTI's intervals)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    iv = [(e.start_ns(), e.start_ns() + e.duration_ns())
+          for e in prof.profiler.kineto_results.events()
+          if e.device_type() == cuda and not e.is_user_annotation()
+          and not e.name().startswith("portbench.")]
+    return out, sum(b - a for a, b in _union(iv)) / 1e9
 
 
 def profiled(runner) -> dict:
