@@ -1746,7 +1746,8 @@ def recover_phases(torch, card, rv, cpu, stream):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log = rv.recover_log
     accept = float(rec.mean())
-    rounds = [dict(r, dens=len(r["dens"])) for r in log["rounds"]]
+    rounds = [{k: len(v) if k == "dens" else v for k, v in r.items()
+               if k not in ("clips", "keys")} for r in log["rounds"]]
     all_dens = sorted({d for r in log["rounds"] for d in r["dens"]})
     # again, with the scan bank and every resampler plan now cached
     torch.cuda.synchronize()

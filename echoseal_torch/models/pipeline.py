@@ -81,6 +81,10 @@ class ClipDetail(typing.NamedTuple):
     session_nonce: bytes
     frame_ctr: int
     stage: str                # 'hard' | 'scl' | 'ext_ctr'
+    # verify_batch_recover: the speed correction the clip was accepted at,
+    # the retry lattice's rational (1.0: the first pass or the deferred
+    # escalation, and every verify_batch accept)
+    factor: float = 1.0
 
 
 def resolve_sync_dtype(sync_dtype: str | None) -> torch.dtype:
@@ -768,9 +772,13 @@ class RobustBatchVerifier(BatchVerifier):
         self._scan_bank: torch.Tensor | None = None
         # what the last verify_batch_recover did, in host seconds:
         # "first_pass_s", "bank_s" (building the scan bank, first time
-        # only), "scan_rows", "scan_s", "deferred_s", and per dispatched
-        # retry round {"rows", "host_rows", "dens", "accepted", "s",
-        # "plan_s" (resampler FIR designs), "scl_s" (its SCL rungs)}
+        # only), "scan_rows", "scan_s", "deferred_s"; its counters
+        # "retry_rows" (rows re-verified over all rounds), "dens" (the
+        # distinct retry denominators), "host_rows" (rows resampled on the
+        # host); and per dispatched retry round {"rows", "host_rows",
+        # "dens", "accepted", "s", "plan_s" (resampler FIR designs),
+        # "scl_s" (its SCL rungs), "clips" and "keys" (each re-verified
+        # row's clip and lattice key, in the order of the round's batch)}
         self.recover_log: dict = {"rounds": []}
 
     # ------------------------------------------------------------------ API
@@ -951,7 +959,9 @@ class RobustBatchVerifier(BatchVerifier):
     # ------------------------------------------------- time-scale recovery
     def verify_batch_recover(self, clips, n_valid=None, *,
                              expected_nonce: bytes | None = None,
-                             fs_in: int | None = None) -> np.ndarray:
+                             fs_in: int | None = None,
+                             details: dict[int, ClipDetail] | None = None
+                             ) -> np.ndarray:
         """``verify_batch`` plus batched +-5% playback-speed recovery.
 
         Clips the plain pass misses get a sync-only scaled-template scan
@@ -964,15 +974,41 @@ class RobustBatchVerifier(BatchVerifier):
 
         ``fs_in`` composes the device ingest conversion with recovery: the
         scan and retries run on the ingested batch at ``self.fs``; the
-        host resample path (factor groups outside the device family's
-        +-5%) corrects straight from the original-rate host clips in ONE
-        polyphase pass (up = fs, down = round(fs_in * factor)).
+        host resample path (factor groups outside the device family,
+        ``RETRY_REACH``) corrects straight from the original-rate host
+        clips in ONE polyphase pass (up = fs, down = round(fs_in *
+        factor)).
 
         ``clips`` may be a ``torch.Tensor`` already on the verifier's
         device: then nothing is uploaded, and host bytes are materialised
-        (one download) only if some recovered factor falls outside the
-        device family, which the scan grid never produces on its own.
+        (one download) only if some retry factor falls outside the device
+        family, which neither the scan grid nor the refinement produces.
+
+        ``details`` (optional dict) collects a ``ClipDetail`` per accepted
+        clip index, as ``verify_batch``'s does, with the ``factor`` the
+        clip was accepted at.  Spans: ``verify_batch_recover`` (``clips``,
+        ``accepts``, and the counters ``retry_rows``, ``dens``,
+        ``host_rows``) > ``recover.first_pass``, ``recover.scan``,
+        ``recover.round`` (> ``recover.resample``), ``recover.deferred``.
         """
+        log = self.recover_log = {"first_pass_s": 0.0, "bank_s": 0.0,
+                                  "scan_rows": 0, "scan_s": 0.0,
+                                  "deferred_s": 0.0, "retry_rows": 0,
+                                  "dens": [], "host_rows": 0, "rounds": []}
+        with Timer("verify_batch_recover", clips=len(clips)) as root:
+            verdicts = self._recover(clips, n_valid, expected_nonce, fs_in,
+                                     details)
+            log["dens"] = sorted({d for r in log["rounds"]
+                                  for d in r["dens"]})
+            root.attrs.update(accepts=int(verdicts.sum()),
+                              retry_rows=log["retry_rows"],
+                              dens=len(log["dens"]),
+                              host_rows=log["host_rows"])
+        return verdicts
+
+    def _recover(self, clips, n_valid, expected_nonce: bytes | None,
+                 fs_in: int | None, details: dict | None) -> np.ndarray:
+        """The body of ``verify_batch_recover``."""
         dev_in = isinstance(clips, torch.Tensor)
         if not dev_in:
             clips = np.asarray(clips, dtype=np.float32)
@@ -985,22 +1021,23 @@ class RobustBatchVerifier(BatchVerifier):
         else:
             clips_dev = torch.as_tensor(clips, dtype=torch.float32,
                                         device=self.device)
-        log = self.recover_log = {"first_pass_s": 0.0, "bank_s": 0.0,
-                                  "scan_rows": 0, "scan_s": 0.0,
-                                  "deferred_s": 0.0, "rounds": []}
+        log = self.recover_log
         t0 = time.perf_counter()
-        out = self.run_device(clips_dev, n_valid)
         real = n_valid > 0
-        # hard verdicts ONLY here: on a time-scaled batch every clip fails
-        # the hard pass AND cannot SCL-decode (the chip timing is off), so
-        # the full ladder would burn list decodes before the scan even
-        # ran.  Escalation moves BEHIND the scan: recovered clips get the
-        # full ladder inside the retry re-verify; clips the scan could
-        # not place (or whose retry failed) get the deferred escalation
-        # against these SAME device outputs below -- verdict-identical,
-        # rescue is a disjunction over attempts.
-        verdicts = self._finish_ladder(out, expected_nonce, False, 0,
-                                       real=real)
+        with Timer("recover.first_pass") as sp:
+            marks = sp.marks_for(self.device)
+            out = self.run_device(clips_dev, n_valid)
+            _mark(marks, "device")
+            # hard verdicts ONLY here: on a time-scaled batch every clip
+            # fails the hard pass AND cannot SCL-decode (the chip timing is
+            # off), so the full ladder would burn list decodes before the
+            # scan even ran.  Escalation moves BEHIND the scan: recovered
+            # clips get the full ladder inside the retry re-verify; clips
+            # the scan could not place (or whose retry failed) get the
+            # deferred escalation against these SAME device outputs below
+            # -- verdict-identical, rescue is a disjunction over attempts.
+            verdicts = self._finish_ladder(out, expected_nonce, False, 0,
+                                           real=real, details=details)
         fail = np.flatnonzero(real & ~verdicts)
         log["first_pass_s"] = time.perf_counter() - t0
         if fail.size == 0:
@@ -1011,15 +1048,23 @@ class RobustBatchVerifier(BatchVerifier):
             self._device_scan_bank()
             log["bank_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        nv_dev = torch.as_tensor(n_valid, device=self.device)
-        score_parts = []
-        for c0 in range(0, fail.size, self.SCAN_CHUNK):
-            idx = torch.as_tensor(fail[c0:c0 + self.SCAN_CHUNK],
-                                  device=self.device)
-            score_parts.append(robust._scale_scan_batch(
-                clips_dev[idx], nv_dev[idx], self._scan_bank))
-        scores = np.concatenate(
-            [np.asarray(torch.as_tensor(p).cpu()) for p in score_parts])
+        chunks = range(0, fail.size, self.SCAN_CHUNK)
+        with Timer("recover.scan", rows=int(fail.size),
+                   chunks=len(chunks)) as sp:
+            marks = sp.marks_for(self.device)
+            nv_dev = torch.as_tensor(n_valid, device=self.device)
+            score_parts = []
+            for c0 in chunks:
+                idx = torch.as_tensor(fail[c0:c0 + self.SCAN_CHUNK],
+                                      device=self.device)
+                score_parts.append(robust._scale_scan_batch(
+                    clips_dev[idx], nv_dev[idx], self._scan_bank))
+            _mark(marks, "scan")
+            with Timer("scan.download") as dl:
+                scores = np.concatenate(
+                    [np.asarray(torch.as_tensor(p).cpu())
+                     for p in score_parts])
+                dl.attrs["bytes"] = scores.nbytes
         log.update(scan_rows=int(fail.size), scan_s=time.perf_counter() - t0)
 
         grid = np.asarray(robust.SCALE_SCAN_GRID)
@@ -1074,12 +1119,15 @@ class RobustBatchVerifier(BatchVerifier):
         verdicts = self._retry_scaled(clips_host, nv_host, factors, verdicts,
                                       expected_nonce, refine=4,
                                       clips_dev=clips_dev, nv_dev=n_valid,
-                                      fs_host=fs_host, fallback=fallback)
+                                      fs_host=fs_host, fallback=fallback,
+                                      details=details)
         left = real & ~verdicts
         if left.any():          # the deferred escalation
             t0 = time.perf_counter()
-            verdicts |= self._finish_ladder(out, expected_nonce, True,
-                                            1 << 20, real=left)
+            with Timer("recover.deferred", rows=int(left.sum())):
+                verdicts |= self._finish_ladder(out, expected_nonce, True,
+                                                1 << 20, real=left,
+                                                details=details)
             log["deferred_s"] = time.perf_counter() - t0
         return verdicts
 
@@ -1103,128 +1151,176 @@ class RobustBatchVerifier(BatchVerifier):
                 self.device, SCAN_TABLE_DTYPES)["scan_bank"]
         return self._scan_bank
 
+    # every correction factor a device batch's retry rounds can reach: the
+    # scan's +-5 % grid, then up to four refinement rounds, each a chained
+    # estimate of at most 2 % or a lattice neighbour.  A key outside the
+    # device family takes the host path, which downloads the whole clip
+    # batch to resample its rows (755 MB at 1024 x 184 384: a fifth of
+    # the card's busy time in an H100 run of such calls), so the family
+    # spans the whole reach; the widening costs the resample ~10 %
+    RETRY_REACH = (0.95 * 0.98 ** 4, 1.05 * 1.02 ** 4)
+
     def _device_resampler(self, t_in: int) -> DeviceResampler:
-        """The +-5% device resampler family for ``t_in``-wide clips."""
-        return self._resampler(self.RETRY_UP, int(self.RETRY_UP * 0.95),
-                               int(self.RETRY_UP * 1.05), t_in)
+        """The device resampler family of the retry rounds (every factor
+        of ``RETRY_REACH``, four lattice steps beyond) for ``t_in``-wide
+        clips."""
+        lo, hi = self.RETRY_REACH
+        return self._resampler(self.RETRY_UP, int(self.RETRY_UP * lo) - 4,
+                               int(self.RETRY_UP * hi) + 4, t_in)
 
     def _retry_scaled(self, clips, n_valid, factors: dict[int, float],
                       verdicts: np.ndarray, expected_nonce: bytes | None,
                       refine: int, clips_dev=None, nv_dev=None,
                       fs_host: int | None = None,
                       fallback: dict[int, list[float]] | None = None,
-                      tried: dict[int, set] | None = None) -> np.ndarray:
+                      tried: dict[int, set] | None = None,
+                      details: dict[int, ClipDetail] | None = None,
+                      depth: int = 0) -> np.ndarray:
         """Group-resample ``factors`` clips, re-verify, optionally refine.
 
         With ``clips_dev`` (the clip batch on the device) the correction
         resamples there (``ops/resample.py``) on the ``RETRY_UP`` lattice,
         so both the coarse grid factors and the peak-spacing refinements
         stay on the device; the host ``resample_poly`` path remains for
-        factor groups outside the +-5% family and for callers without a
-        device batch, and computes the identical rational correction.
-        ``tried`` collects, per clip, the lattice keys attempted.
+        factor groups outside the device family (``RETRY_REACH``) and for
+        callers without a device batch, and computes the same rational
+        correction on the ``fs`` lattice.
+        ``tried`` collects, per clip, the lattice keys attempted;
+        ``details`` the accepts, each with its lattice factor; ``depth``
+        counts the rounds before this one (the span ``recover.round``).
         """
         from scipy.signal import resample_poly
 
         if not factors:
             return verdicts
-        t_round = time.perf_counter()
-        # the retry batch lives on the device timeline at self.fs; the
-        # host clips may be at another capture rate (fs_host, from the
-        # verify_batch_recover(fs_in=...) ingest composition)
-        fs_host = self.fs if fs_host is None else int(fs_host)
-        nv_dev = n_valid if nv_dev is None else np.asarray(nv_dev, np.int32)
-        Tpad = (clips_dev.shape[1] if clips_dev is not None
-                else clips.shape[1])
-        # group by RETRY_UP-lattice denominator, not raw float factor:
-        # per-clip refinement estimates that quantize to the same den
-        # must share one resample pass (and one cached tap table)
-        q = self.RETRY_UP if clips_dev is not None else self.fs
-        tried = {} if tried is None else tried
-        groups: dict[int, list[int]] = {}
-        rep_f: dict[int, float] = {}
-        for i, f in factors.items():
-            key = int(round(q * f))
-            tried.setdefault(i, set()).add(key)
-            groups.setdefault(key, []).append(i)
-            rep_f.setdefault(key, float(f))
+        with Timer("recover.round", depth=depth) as span:
+            t_round = time.perf_counter()
+            log = self.recover_log
+            # the retry batch lives on the device timeline at self.fs; the
+            # host clips may be at another capture rate (fs_host, from the
+            # verify_batch_recover(fs_in=...) ingest composition)
+            fs_host = self.fs if fs_host is None else int(fs_host)
+            nv_dev = (n_valid if nv_dev is None
+                      else np.asarray(nv_dev, np.int32))
+            Tpad = (clips_dev.shape[1] if clips_dev is not None
+                    else clips.shape[1])
+            # group by RETRY_UP-lattice denominator, not raw float factor:
+            # per-clip refinement estimates that quantize to the same den
+            # must share one resample pass (and one cached tap table)
+            q = self.RETRY_UP if clips_dev is not None else self.fs
+            tried = {} if tried is None else tried
+            groups: dict[int, list[int]] = {}
+            rep_f: dict[int, float] = {}
+            for i, f in factors.items():
+                key = int(round(q * f))
+                tried.setdefault(i, set()).add(key)
+                groups.setdefault(key, []).append(i)
+                rep_f.setdefault(key, float(f))
 
-        # device rows are concatenated ahead of host rows, so bookkeeping
-        # (sel / nv2) is kept in matching (device, host) halves
-        sel_d: list[int] = []
-        sel_h: list[int] = []
-        rows: list[np.ndarray] = []
-        dev_rows: list[torch.Tensor] = []
-        nv2_d: list[int] = []
-        nv2_h: list[int] = []
-        dens: list[int] = []
-        rs = self._device_resampler(Tpad) if clips_dev is not None else None
-        plan_s0 = rs.plan_s if rs is not None else 0.0
-        for den, members in groups.items():
-            # the group key IS the denominator on the ``q`` lattice
-            # (q == rs.up when a device batch exists, else self.fs)
-            if rs is not None and den == rs.up:
-                continue    # identity: re-verifying the same clip is a
-                            # no-op and the resampler rejects factor 1.0
-            dens.append(den)
-            if rs is not None and rs.down_min <= den <= rs.down_max:
-                midx = torch.as_tensor(members, device=self.device)
-                y, n_out = rs(clips_dev[midx], den)
-                dev_rows.append(y[:, :Tpad])
-                L = min(n_out, Tpad)
-                sel_d.extend(members)
-                nv2_d.extend(min(int(int(nv_dev[i]) * rs.up / den), L)
-                             for i in members)
-            else:
-                # straight from the original-rate host clips: the rate
-                # conversion and the speed correction compose into ONE
-                # rational polyphase pass (up=fs, down=fs_host*factor)
-                if clips is None:
-                    # device-resident caller: materialise host bytes once
-                    # (only out-of-family factors reach this branch).  The
-                    # rows live on the INGESTED device timeline at
-                    # self.fs, not at the fs_host capture rate -- rebase
-                    # the host-path rate and lengths, or a 44.1 kHz fs_in
-                    # caller gets a spurious ~8.8% extra speed shift here.
-                    clips = clips_dev.cpu().numpy()
-                    fs_host = self.fs
-                    n_valid = nv_dev
-                den_h = int(round(fs_host * rep_f[den]))
-                g = gcd(self.fs, den_h)
-                y = resample_poly(clips[members], self.fs // g, den_h // g,
-                                  axis=-1).astype(np.float32)
-                L = min(y.shape[1], Tpad)
-                for r in range(len(members)):
-                    row = np.zeros(Tpad, np.float32)
-                    row[:L] = y[r, :L]
-                    rows.append(row)
-                sel_h.extend(members)
-                nv2_h.extend(min(int(int(n_valid[i]) * self.fs / den_h), L)
-                             for i in members)
-        sel = sel_d + sel_h
-        if not sel:                 # every group was the lattice identity
-            return verdicts
-        parts = list(dev_rows)
-        if rows:
-            parts.append(torch.as_tensor(np.stack(rows), device=self.device))
-        batch = parts[0] if len(parts) == 1 else torch.cat(parts)
-        nv2_arr = np.asarray(nv2_d + nv2_h, np.int32)
-        out = self.run_device(batch, nv2_arr)
-        # drop THIS round's staging buffers before the ladder and the
-        # recursion: each refinement level would otherwise pin its own
-        # batch of resampled rows down the recursion
-        del batch, parts, dev_rows
-        vr = self._finish_ladder(out, expected_nonce, True, 1 << 20,
-                                 real=nv2_arr > 0)
-        for r, i in enumerate(sel):
-            verdicts[i] |= vr[r]
-        self.recover_log["rounds"].append(
-            {"rows": len(sel), "host_rows": len(sel_h), "dens": sorted(dens),
-             "accepted": int(vr.sum()), "s": time.perf_counter() - t_round,
-             "plan_s": (rs.plan_s if rs is not None else 0.0) - plan_s0,
-             "scl_s": sum(r[3] for r in self.scl_rungs)})
+            # device rows are concatenated ahead of host rows, so the
+            # bookkeeping (sel / nv2 / keys) is kept in matching (device,
+            # host) halves
+            sel_d: list[int] = []
+            sel_h: list[int] = []
+            keys_d: list[int] = []
+            keys_h: list[int] = []
+            rows: list[np.ndarray] = []
+            dev_rows: list[torch.Tensor] = []
+            nv2_d: list[int] = []
+            nv2_h: list[int] = []
+            dens: list[int] = []
+            rs = (self._device_resampler(Tpad) if clips_dev is not None
+                  else None)
+            plan_s0 = rs.plan_s if rs is not None else 0.0
+            for den, members in groups.items():
+                # the group key IS the denominator on the ``q`` lattice
+                # (q == rs.up when a device batch exists, else self.fs)
+                if rs is not None and den == rs.up:
+                    continue    # identity: re-verifying the same clip is a
+                                # no-op and the resampler rejects factor 1.0
+                dens.append(den)
+                if rs is not None and rs.down_min <= den <= rs.down_max:
+                    with Timer("recover.resample", rows=len(members),
+                               den=den) as rsp:
+                        marks = rsp.marks_for(self.device)
+                        misses = rs.misses
+                        midx = torch.as_tensor(members, device=self.device)
+                        y, n_out = rs(clips_dev[midx], den)
+                        _mark(marks, "resample")
+                        rsp.attrs["miss"] = rs.misses - misses
+                    dev_rows.append(y[:, :Tpad])
+                    L = min(n_out, Tpad)
+                    sel_d.extend(members)
+                    keys_d.extend([den] * len(members))
+                    nv2_d.extend(min(int(int(nv_dev[i]) * rs.up / den), L)
+                                 for i in members)
+                else:
+                    # straight from the original-rate host clips: the rate
+                    # conversion and the speed correction compose into ONE
+                    # rational polyphase pass (up=fs, down=fs_host*factor)
+                    if clips is None:
+                        # device-resident caller: materialise host bytes
+                        # once (only out-of-family factors reach this
+                        # branch).  The rows live on the INGESTED device
+                        # timeline at self.fs, not at the fs_host capture
+                        # rate -- rebase the host-path rate and lengths, or
+                        # a 44.1 kHz fs_in caller gets a spurious ~8.8%
+                        # extra speed shift here.
+                        clips = clips_dev.cpu().numpy()
+                        fs_host = self.fs
+                        n_valid = nv_dev
+                    den_h = int(round(fs_host * rep_f[den]))
+                    g = gcd(self.fs, den_h)
+                    y = resample_poly(clips[members], self.fs // g,
+                                      den_h // g, axis=-1).astype(np.float32)
+                    L = min(y.shape[1], Tpad)
+                    for r in range(len(members)):
+                        row = np.zeros(Tpad, np.float32)
+                        row[:L] = y[r, :L]
+                        rows.append(row)
+                    sel_h.extend(members)
+                    keys_h.extend([den] * len(members))
+                    nv2_h.extend(
+                        min(int(int(n_valid[i]) * self.fs / den_h), L)
+                        for i in members)
+            sel = sel_d + sel_h
+            span.attrs.update(rows=len(sel), host_rows=len(sel_h),
+                              dens=len(dens), accepted=0)
+            if not sel:             # every group was the lattice identity
+                return verdicts
+            keys = keys_d + keys_h
+            parts = list(dev_rows)
+            if rows:
+                parts.append(torch.as_tensor(np.stack(rows),
+                                             device=self.device))
+            batch = parts[0] if len(parts) == 1 else torch.cat(parts)
+            nv2_arr = np.asarray(nv2_d + nv2_h, np.int32)
+            out = self.run_device(batch, nv2_arr)
+            # drop THIS round's staging buffers before the ladder and the
+            # recursion: each refinement level would otherwise pin its own
+            # batch of resampled rows down the recursion
+            del batch, parts, dev_rows
+            got = {} if details is not None else None
+            vr = self._finish_ladder(out, expected_nonce, True, 1 << 20,
+                                     real=nv2_arr > 0, details=got)
+            for r, d in (got or {}).items():
+                if not verdicts[sel[r]]:
+                    details[sel[r]] = d._replace(factor=keys[r] / q)
+            for r, i in enumerate(sel):
+                verdicts[i] |= vr[r]
+            span.attrs["accepted"] = int(vr.sum())
+            log["retry_rows"] = log.get("retry_rows", 0) + len(sel)
+            log["host_rows"] = log.get("host_rows", 0) + len(sel_h)
+            log["rounds"].append(
+                {"rows": len(sel), "host_rows": len(sel_h),
+                 "dens": sorted(dens), "accepted": int(vr.sum()),
+                 "s": time.perf_counter() - t_round,
+                 "plan_s": (rs.plan_s if rs is not None else 0.0) - plan_s0,
+                 "scl_s": sum(r[3] for r in self.scl_rungs),
+                 "clips": list(sel), "keys": keys})
+            if refine <= 0:
+                return verdicts
 
-        if refine > 0:
             # chained inter-peak-spacing refinement, depth = ``refine``
             # rounds.  A clip whose failed retry shows NO usable spacing
             # estimate (wrong-basin factor -> no peaks) pulls its next
@@ -1280,12 +1376,14 @@ class RobustBatchVerifier(BatchVerifier):
                             break
                 if cand is not None:
                     nxt[i] = cand
-            verdicts = self._retry_scaled(clips, n_valid, nxt, verdicts,
-                                          expected_nonce, refine=refine - 1,
-                                          clips_dev=clips_dev, nv_dev=nv_dev,
-                                          fs_host=fs_host, fallback=fallback,
-                                          tried=tried)
-        return verdicts
+        # the recursion runs after this round's span has closed, so each
+        # ``recover.round`` holds its own round's work alone
+        return self._retry_scaled(clips, n_valid, nxt, verdicts,
+                                  expected_nonce, refine=refine - 1,
+                                  clips_dev=clips_dev, nv_dev=nv_dev,
+                                  fs_host=fs_host, fallback=fallback,
+                                  tried=tried, details=details,
+                                  depth=depth + 1)
 
     # ----------------------------------------------------------- SCL stage
     def _scl_fallback(self, out, mask: np.ndarray,

@@ -212,6 +212,7 @@ class DeviceResampler:
         self._plans: dict[int, tuple] = {}
         self._plans_cap = 256
         self.plan_s = 0.0     # host seconds spent designing missed plans
+        self.misses = 0       # plans designed (cache misses), ever
 
     def _plan_dev(self, down: int):
         plan = self._plans.pop(down, None)
@@ -228,6 +229,7 @@ class DeviceResampler:
             while len(self._plans) >= self._plans_cap:
                 self._plans.pop(next(iter(self._plans)))
             self.plan_s += time.perf_counter() - t0
+            self.misses += 1
         self._plans[down] = plan          # (re-)insert at LRU tail
         return plan
 
