@@ -48,7 +48,14 @@ line):
    exactly the masked lags, the NMS peaks at the same lags but for ties;
    its time beside the plain version's, cuDNN's ``conv1d`` pair
    (``library_ms``) and the bound (bf16 tensor-core operations against
-   bytes);
+   bytes); (f) ``scale_scan``, the recovery's time-scale scan, against
+   ``robust.scale_scan_plain`` on the recovery's scan chunk (the first
+   SCAN_CHUNK rows of batch 0 of the benchmark's ``v2.recover-timescale``
+   at a seed), the single-clip stage's one padded row and ragged rows:
+   scores within SCAN_TOL, -inf exactly where the plain version has it,
+   the picked factor the same but for ties; its time beside the plain
+   version's, the cuFFT full-length scan it replaced (``library_ms``) and
+   the bound (fp32 FFT operations against the rows and energies read);
 4. compat main path at full width: a 4096-frame stream from the port's
    host TX (every random byte drawn from ``SEED``), B = 1024 clips of 3 s
    at 48 kHz cut at frame-aligned random starts,
@@ -209,7 +216,8 @@ failing impaired v2 rows (20-21) must each have launched it; phase 26's
 serving legs must launch it never, its exact legs count theirs.  Every
 serving decode on the card is one launch of ``scl_serving``: phase 26's
 decoder, ladder, recovery and single-clip legs add theirs to a path
-(``SERVING_BY_PATH``), and each must have launched it.
+(``SERVING_BY_PATH``), and each must have launched it.  Phase 14's
+recovery call must launch ``scale_scan`` once per scan chunk.
 
 Before the last line it prints ``{"kernels": [...]}``: each kernel at the
 v2 path's shape (``scl_decode`` and ``scl_serving`` at the ladder's first
@@ -281,6 +289,8 @@ BF16_FLOP_PER_S = 989e12      # dense tensor cores, fp32 accumulators
 SYNC_SEEDS = (2147483901, 3000000011)
 SYNC_REC_ROWS = 96
 SYNC_TOL = 1e-5
+# phase 3f: scores of the scan kernel against its plain version
+SCAN_TOL = 1e-5
 # exp and log1p: 16 SFU results per SM per clock, 132 SMs, 1.98 GHz boost
 # (H100 SXM, the Hopper architecture white paper)
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
@@ -363,6 +373,8 @@ def scl_launches(path: str, launches) -> int:
 SERVING_BY_PATH: dict[str, int] = {}
 # path -> sync_xcorr launches of one verify_batch (phases 4 and 7)
 SYNC_BY_PATH: dict[str, int] = {}
+# path -> scale_scan launches of one recovery call (phase 14)
+SCAN_BY_PATH: dict[str, int] = {}
 
 
 def serving_launches(path: str, launches, least: int = 1) -> int:
@@ -637,6 +649,129 @@ def sync_kernel_phase(torch, flush, busy):
                     "source": "echoseal_torch/csrc/sync_xcorr.cu",
                     "replaces": "echoseal_tpu/ops/demod.py:202 (XLA "
                                 "convolutions; no Pallas kernel)",
+                    "launches": None, "max_abs_err": None,
+                    **{k: line[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}}
+        emit(line)
+        del got, want
+    return max_err, entry
+
+
+def _cufft_scan(torch, x, n_valid, bank, row_chunk=4):
+    """The full-length cuFFT scan ``scale_scan`` replaced (its yardstick):
+    per 4-row chunk of the bank a (B, 4, T) correlation cube divided,
+    masked and reduced in device memory."""
+    from echoseal_torch.models import robust
+
+    Bn, Tn = x.shape
+    R, L = bank.shape
+    n_lag = Tn - L + 1
+    X = torch.fft.rfft(x)
+    energy = robust._window_energy(x, L)
+    lag = torch.arange(n_lag, device=x.device)
+    bad = lag[None, :] > (n_valid.long()[:, None] - L)
+    Bf = torch.conj(torch.fft.rfft(bank, Tn))
+    scores = []
+    for r0 in range(0, R, row_chunk):
+        corr = torch.fft.irfft(X[:, None, :] * Bf[None, r0:r0 + row_chunk],
+                               Tn, dim=-1)[..., :n_lag]
+        corr.div_(energy[:, None, :])
+        corr.masked_fill_(bad[:, None, :], float("-inf"))
+        scores.append(corr.amax(dim=-1))
+    return torch.cat(scores, dim=1)
+
+
+def _scan_work(nv: np.ndarray, width: int, L: int, R: int):
+    """(fp32 operations, bytes) the scan needs: per pair of segments with a
+    valid lag, one N-point complex FFT and R inverse ones (5 N log2 N
+    each), R spectral products (6 N) and 2 H normalised maxima (2 each);
+    the rows and the energies read once."""
+    from echoseal_torch.models import robust
+
+    n = robust.SCAN_FFT_LEN
+    H = n - L + 1
+    lim = np.minimum(nv.astype(np.int64), width) - L
+    segs = np.where(lim >= 0, lim // H + 1, 0)
+    pairs = int(((segs + 1) // 2).sum())
+    ops = pairs * ((R + 1) * 5 * n * np.log2(n) + R * (6 * n + 4 * H))
+    n_bytes = 4 * len(nv) * (width + width - L + 1)
+    return float(ops), n_bytes, pairs
+
+
+def scan_kernel_phase(torch, flush, busy):
+    """Phase 3f: the time-scale scan kernel against its plain version.
+
+    Returns (max error over the cases, the ``kernels`` entry).
+    """
+    from echoseal_torch.core.profiles import ROBUST
+    from echoseal_torch.models import robust
+    from echoseal_torch.models.pipeline import RobustBatchVerifier
+    from portbench import gen, harness
+
+    bank = robust.device_scan_bank(
+        robust.scaled_template_bank(FS, ROBUST.oversample), "cuda")
+    R, L = bank.shape
+    c = harness.load_cell("v2.recover-timescale")
+    _, batches = gen.make_batches(c["config"], c["traffic"], SYNC_SEEDS[0],
+                                  "cuda")
+    chunk = RobustBatchVerifier.SCAN_CHUNK
+    clips, nv = batches[0].clips[:chunk], batches[0].n_valid[:chunk]
+    one = torch.zeros(1, 1 << 18, device="cuda")
+    one[0, :T35] = clips[0, :T35]
+    rng = np.random.default_rng(SEED + 31)
+    rag_nv = rng.integers(L, TPAD_REC, 17)
+    rag_nv[:3] = (L - 1, L, 9_000)
+    cases = [("recover_chunk", clips, nv),
+             ("single_clip", one, torch.tensor([T35], device="cuda")),
+             ("ragged", clips[:17, :TPAD_REC].contiguous(),
+              torch.from_numpy(rag_nv).cuda())]
+    del batches
+    grid = np.asarray(robust.SCALE_SCAN_GRID)
+    entry, max_err = None, 0.0
+    for name, x, n in cases:
+        got = robust._scale_scan_batch(x, n, bank)
+        want = robust.scale_scan_plain(x, n, bank)
+        torch.cuda.synchronize()
+        check(torch.equal(torch.isneginf(got), torch.isneginf(want))
+              and not torch.isnan(got).any(),
+              f"scale_scan {name}: -inf off the plain version's")
+        fin = torch.isfinite(want)
+        err = float((got - want)[fin].abs().max()) if fin.any() else 0.0
+        check(err <= SCAN_TOL, f"scale_scan {name}: max err {err}")
+        max_err = max(max_err, err)
+        g = got.cpu().numpy().reshape(-1, grid.size, 4).max(-1)
+        w = want.cpu().numpy().reshape(-1, grid.size, 4).max(-1)
+        ties = 0
+        for i in np.flatnonzero(g.argmax(1) != w.argmax(1)):
+            gap = abs(w[i, g[i].argmax()] - w[i, w[i].argmax()])
+            check(gap <= 2 * err, f"scale_scan {name}: clip {i} picks "
+                  f"{grid[g[i].argmax()]}, plain {grid[w[i].argmax()]}")
+            ties += 1
+        line = {"phase": "kernel_check", "name": "scale_scan", "case": name,
+                "shape": list(x.shape), "rows": R, "L": L,
+                "n_fft": robust.SCAN_FFT_LEN, "max_abs_err": err,
+                "pick_ties": ties}
+        if name != "ragged":
+            n_ops, n_bytes, pairs = _scan_work(n.cpu().numpy(), x.shape[1],
+                                               L, R)
+            t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            line.update(
+                ms=cuda_ms(lambda: robust._scale_scan_batch(x, n, bank),
+                           torch, flush=flush, busy=busy),
+                plain_ms=cuda_ms(lambda: robust.scale_scan_plain(x, n, bank),
+                                 torch, n=5, flush=flush, busy=busy),
+                library_ms=cuda_ms(lambda: _cufft_scan(torch, x, n, bank),
+                                   torch, n=5, flush=flush, busy=busy),
+                bound_ms=max(t_ops, t_bytes), ops_ms=t_ops, bytes_ms=t_bytes,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                pairs=pairs)
+            if entry is None:
+                entry = {
+                    "name": "scale_scan", "route": "cuda",
+                    "source": "echoseal_torch/csrc/scale_scan.cu",
+                    "replaces": "echoseal_tpu/models/robust.py:179 (jnp.fft; "
+                                "no Pallas kernel)",
                     "launches": None, "max_abs_err": None,
                     **{k: line[k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}}
@@ -1743,6 +1878,10 @@ def recover_phases(torch, card, rv, cpu, stream):
     rec_s = time.perf_counter() - t0
     launches_rec = dict(build.LAUNCHES)
     scl_launches("timescale_recover", launches_rec)
+    n_chunks = -(-rv.recover_log["scan_rows"] // rv.SCAN_CHUNK)
+    check(launches_rec.get("scale_scan", 0) == n_chunks,
+          f"scale_scan launches {launches_rec} vs {n_chunks} scan chunks")
+    SCAN_BY_PATH["timescale_recover"] = n_chunks
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log = rv.recover_log
     accept = float(rec.mean())
@@ -3299,6 +3438,7 @@ def main() -> None:
     scl_err, scl_entry = scl_kernel_phase(torch, flush, busy)
     serving_err, serving_entry = serving_kernel_phase(torch, flush, busy)
     sync_err, sync_entry = sync_kernel_phase(torch, flush, busy)
+    scan_err, scan_entry = scan_kernel_phase(torch, flush, busy)
     del flush
 
     by_path = {}
@@ -3338,12 +3478,14 @@ def main() -> None:
                               (llr_entry, llr_by_path, llr_err),
                               (scl_entry, SCL_BY_PATH, scl_err),
                               (serving_entry, SERVING_BY_PATH, serving_err),
-                              (sync_entry, SYNC_BY_PATH, sync_err)):
+                              (sync_entry, SYNC_BY_PATH, sync_err),
+                              (scan_entry, SCAN_BY_PATH, scan_err)):
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
         entry["max_abs_err"] = err
     print(json.dumps({"kernels": [decode_entry, llr_entry, scl_entry,
-                                  serving_entry, sync_entry]}), flush=True)
+                                  serving_entry, sync_entry, scan_entry]}),
+          flush=True)
 
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

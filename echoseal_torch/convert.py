@@ -65,6 +65,7 @@ VERIFIER_TABLE_DTYPES = {
 # built on the first time-scale recovery, outside the verifier's ``tables``
 SCAN_TABLE_DTYPES = {
     "scan_bank": torch.float32,   # (31 * 4, ~531) scaled sync templates
+    "scan_spectra": torch.complex64,   # (31 * 4, 2049) their rfft at 4096
 }
 
 

@@ -45,7 +45,6 @@ import numpy as np
 import torch
 
 from echoseal_torch.convert import (
-    SCAN_TABLE_DTYPES,
     TABLE_DTYPES,
     V2_TABLE_DTYPES,
     tables_from_numpy,
@@ -1145,10 +1144,9 @@ class RobustBatchVerifier(BatchVerifier):
         """The scaled sync-template bank of the time-scale scan on this
         verifier's device, designed on the host at first use (seconds)."""
         if self._scan_bank is None:
-            self._scan_bank = tables_from_numpy(
-                {"scan_bank": robust.scaled_template_bank(
-                    self.fs, self.profile.oversample)},
-                self.device, SCAN_TABLE_DTYPES)["scan_bank"]
+            self._scan_bank = robust.device_scan_bank(
+                robust.scaled_template_bank(self.fs, self.profile.oversample),
+                self.device)
         return self._scan_bank
 
     # every correction factor a device batch's retry rounds can reach: the

@@ -17,12 +17,14 @@ time-scale recovery ladder of ``verify_detailed``.
 """
 from __future__ import annotations
 
+import ctypes
 import secrets
 from functools import lru_cache
 
 import numpy as np
 import scipy.linalg as sla
 import torch
+import torch.nn.functional as F
 from scipy.signal import lfilter
 
 from echoseal_torch.convert import (
@@ -46,7 +48,7 @@ from echoseal_torch.core.profiles import ROBUST, WaveformProfile, profile_spec
 from echoseal_torch.core.sequences import bits_to_bpsk, header_bits, mls63
 from echoseal_torch.models.detector import VerifyResult
 from echoseal_torch.models.embedder import db_to_lin
-from echoseal_torch.ops import demod, filters
+from echoseal_torch.ops import build, demod, filters
 from echoseal_torch.ops.llr import payload_decode
 from echoseal_torch.ops.polar import encode_np, pack_info_bits
 from echoseal_torch.ops.resample import resample_to
@@ -144,6 +146,50 @@ def scaled_template_bank(fs: int, S: int,
     return bank
 
 
+# The scan runs overlap-save over segments of SCAN_FFT_LEN samples: each
+# gives H = SCAN_FFT_LEN - L + 1 lags of a bank of width L.
+# ``csrc/scale_scan.cu`` takes banks of at most SCAN_MAX_L taps (a quarter
+# segment; the robust profile's bank has about 63 S / 0.95 = 530 at any
+# rate) and SCAN_MAX_ROWS rows.
+SCAN_FFT_LEN = 4096
+SCAN_MAX_L = SCAN_FFT_LEN // 4
+SCAN_MAX_ROWS = 256
+
+
+def scan_bank_spectra(bank: np.ndarray) -> np.ndarray:
+    """(R, SCAN_FFT_LEN/2 + 1) complex64: each bank row's rfft, designed
+    in float64 from the stored float32 rows."""
+    bank = np.asarray(bank, np.float32).astype(np.float64)
+    return np.fft.rfft(bank, SCAN_FFT_LEN, axis=-1).astype(np.complex64)
+
+
+def device_scan_bank(bank: np.ndarray, device) -> torch.Tensor:
+    """The scan bank ``bank`` (``scaled_template_bank``) on ``device``,
+    carrying its spectra table (``scan_bank_spectra``) there as its
+    ``scan_spectra``: the kernel's scan takes a bank only from here."""
+    tables = tables_from_numpy(
+        {"scan_bank": bank, "scan_spectra": scan_bank_spectra(bank)},
+        device, SCAN_TABLE_DTYPES)
+    out = tables["scan_bank"]
+    out.scan_spectra = tables["scan_spectra"]
+    return out
+
+
+def _window_energy(x: torch.Tensor, L: int) -> torch.Tensor:
+    """(B, T - L + 1) float32: sqrt of each L-sample window's energy, +1e-12.
+
+    A cumsum difference, O(T), summed in float64: a one-row cumsum on a
+    CUDA card adds in an order that varies from call to call, and in
+    float32 the difference of two clip-long sums turned that into up to
+    2e-5 of a score on an H100; in float64 the variation stays far below a
+    float32 rounding step.  Cast to float32 after the difference.
+    """
+    e = torch.cumsum(x.double() ** 2, dim=-1)
+    ew = e[:, L - 1:].clone()
+    ew[:, 1:] -= e[:, :-L]
+    return torch.sqrt(torch.clamp(ew.float(), min=0.0)) + 1e-12
+
+
 @torch.no_grad()
 def _scale_scan_stage(x: torch.Tensor, n_valid, bank: torch.Tensor
                       ) -> torch.Tensor:
@@ -153,42 +199,122 @@ def _scale_scan_stage(x: torch.Tensor, n_valid, bank: torch.Tensor
 
 
 @torch.no_grad()
+def scale_scan_plain(x: torch.Tensor, n_valid: torch.Tensor,
+                     bank: torch.Tensor, row_chunk: int = 4) -> torch.Tensor:
+    """The scan kernel's function in torch ops, along its segments.
+
+    ``x`` (B, T) float32, ``n_valid`` (B,), ``bank`` (R, L).  Returns (B,
+    R): per clip and bank row the max over lags t <= n_valid - L of the
+    correlation at t over the window's energy (``_window_energy``); -inf
+    without such a lag.  Overlap-save: segment s is ``x[s H : s H + N]``
+    (zero past T, N = SCAN_FFT_LEN), its rfft times the row's conjugate
+    spectrum (``scan_bank_spectra`` of the bank's rows, designed anew each
+    call) inverse-transformed gives lags s H .. s H + H - 1.  Bank rows go
+    ``row_chunk`` at a time, so the (B, segments, chunk, N) correlation
+    stays bounded.
+    """
+    B, T = x.shape
+    R, L = bank.shape
+    n_fft = SCAN_FFT_LEN
+    H = n_fft - L + 1
+    n_seg = -(-(T - L + 1) // H)
+    energy = F.pad(_window_energy(x, L), (0, n_seg * H - (T - L + 1)),
+                   value=1.0)
+    lim = torch.clamp(n_valid.to(torch.int64), max=T) - L
+    bad = torch.arange(n_seg * H, device=x.device)[None, :] > lim[:, None]
+    segs = F.pad(x, (0, (n_seg - 1) * H + n_fft - T)).unfold(-1, n_fft, H)
+    X = torch.fft.rfft(segs)                         # (B, n_seg, N/2 + 1)
+    conj = torch.conj(torch.as_tensor(              # (R, N/2 + 1)
+        scan_bank_spectra(bank.cpu().numpy()), device=x.device))
+    scores = []
+    for r0 in range(0, R, row_chunk):
+        rows = conj[None, None, r0:r0 + row_chunk]
+        corr = torch.fft.irfft(X[:, :, None] * rows, n_fft,
+                               dim=-1)[..., :H]      # (B, n_seg, c, H)
+        corr = corr.transpose(1, 2).reshape(B, -1, n_seg * H)
+        corr = corr / energy[:, None, :]
+        corr.masked_fill_(bad[:, None, :], float("-inf"))
+        scores.append(corr.amax(dim=-1))             # (B, chunk)
+    return torch.cat(scores, dim=1)
+
+
+@lru_cache(maxsize=1)
+def _scan_launcher():
+    fn = build.load("scale_scan").scale_scan_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@torch.no_grad()
 def _scale_scan_batch(x: torch.Tensor, n_valid: torch.Tensor,
                       bank: torch.Tensor, row_chunk: int = 4) -> torch.Tensor:
     """Max normalized sync correlation per clip and bank row: (B, T) -> (B, R).
 
-    FFT correlation, not conv: the bank has ~124 rows, and one rfft of the
-    batch plus per-row spectral products is far cheaper than a 124-kernel
-    convolution.  The sliding window energy is a cumsum difference, O(T),
-    summed in float64: a one-row cumsum on a CUDA card adds in an order
-    that varies from call to call, and in float32 the difference of two
-    clip-long sums turned that into up to 2e-5 of a score on an H100; in
-    float64 the variation stays far below a float32 rounding step.
-    Bank rows go in chunks of ``row_chunk`` so the (B, chunk, T)
-    correlation cube stays bounded (~380 MB at B=128, chunk=4, T=184k)
-    instead of the full (B, 124, T).  Lags whose window would pass
-    ``n_valid`` are masked, which also masks the circular wrap-around.
+    ``scale_scan_plain``'s function.  ``x`` (B, T) float32 with unit stride
+    along T, ``n_valid`` (B,) int32 or int64, ``bank`` (R, L) float32 with
+    L <= ``SCAN_MAX_L`` and R <= ``SCAN_MAX_ROWS``, T >= L.  CUDA tensors go
+    through ``csrc/scale_scan.cu`` (launched on the current stream, counted
+    in ``build.LAUNCHES["scale_scan"]``), which writes each (clip, segment)
+    pair's row maxima, reduced here over the segments; the window energy
+    stays ``_window_energy``'s float64 sums, and the bank has to come from
+    ``device_scan_bank``, which puts its spectra table beside it.  CPU
+    tensors go through ``scale_scan_plain`` (bank rows ``row_chunk`` at a
+    time).  Both refuse the same inputs, and tensors on another device or
+    on two; there is no fallback.
     """
-    B, T = x.shape
-    R, L = bank.shape
-    n_lag = T - L + 1
-    X = torch.fft.rfft(x)                            # (B, T//2+1)
-    e = torch.cumsum(x.double() ** 2, dim=-1)
-    ew = e[:, L - 1:].clone()
-    ew[:, 1:] -= e[:, :-L]
-    energy = torch.sqrt(torch.clamp(ew.float(), min=0.0)) + 1e-12  # (B, n_lag)
-    del e, ew
-    lag = torch.arange(n_lag, device=x.device)
-    bad = lag[None, :] > (n_valid.to(torch.int64)[:, None] - L)  # (B, n_lag)
-    Bf = torch.conj(torch.fft.rfft(bank, T))         # (R, T//2+1)
-    scores = []
-    for r0 in range(0, R, row_chunk):
-        corr = torch.fft.irfft(X[:, None, :] * Bf[None, r0:r0 + row_chunk],
-                               T, dim=-1)[..., :n_lag]
-        corr.div_(energy[:, None, :])
-        corr.masked_fill_(bad[:, None, :], float("-inf"))
-        scores.append(corr.amax(dim=-1))             # (B, chunk)
-    return torch.cat(scores, dim=1)
+    tensors = (x, n_valid, bank)
+    on_cpu = all(t.device.type == "cpu" for t in tensors)
+    dev = x.device
+    if not on_cpu and (dev.type != "cuda" or
+                       any(t.device != dev for t in tensors)):
+        raise ValueError(
+            "scale_scan: tensors on "
+            f"{', '.join(str(t.device) for t in tensors)}; need all on one "
+            "CUDA device or all on the CPU")
+    if x.dtype != torch.float32 or bank.dtype != torch.float32 or \
+            n_valid.dtype not in (torch.int32, torch.int64):
+        raise ValueError(
+            f"scale_scan: dtypes {x.dtype}, {n_valid.dtype}, {bank.dtype}; "
+            "need float32 x and bank, int32/int64 n_valid")
+    B, T = x.shape if x.ndim == 2 else (-1, -1)
+    R, L = bank.shape if bank.ndim == 2 else (-1, -1)
+    if x.ndim != 2 or bank.ndim != 2 or n_valid.shape != (B,) or \
+            not 1 <= L <= min(T, SCAN_MAX_L) or not 1 <= R <= SCAN_MAX_ROWS:
+        raise ValueError(
+            f"scale_scan: shapes {tuple(x.shape)}, {tuple(n_valid.shape)}, "
+            f"{tuple(bank.shape)}; need (B, T), (B,) and (R, L) with "
+            f"1 <= L <= min(T, {SCAN_MAX_L}) and 1 <= R <= {SCAN_MAX_ROWS}")
+    if x.stride(-1) != 1 or not n_valid.is_contiguous():
+        raise ValueError("scale_scan: x needs unit stride along T, n_valid "
+                         "must be contiguous")
+    if B >= 2 ** 31 or T >= 2 ** 31:
+        raise ValueError("scale_scan: more than 2**31 - 1 rows or samples")
+    if on_cpu:
+        return scale_scan_plain(x, n_valid, bank, row_chunk)
+    spectra = getattr(bank, "scan_spectra", None)
+    if spectra is None:
+        raise ValueError("scale_scan: the bank carries no spectra table; "
+                         "put it on the card with device_scan_bank")
+    n_seg = -(-(T - L + 1) // (SCAN_FFT_LEN - L + 1))
+    part = torch.empty((B, n_seg, R), dtype=torch.float32, device=dev)
+    if B == 0:
+        return part.amax(dim=1)
+    nv = n_valid.to(torch.int64)
+    energy = _window_energy(x, L)
+    with torch.cuda.device(dev):
+        rc = _scan_launcher()(
+            x.data_ptr(), x.stride(0), T, nv.data_ptr(), energy.data_ptr(),
+            energy.stride(0), spectra.data_ptr(), R, L, part.data_ptr(), B,
+            n_seg, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"scale_scan kernel launch failed: cudaError {rc}")
+    build.LAUNCHES["scale_scan"] += 1
+    return part.amax(dim=1)
 
 
 # Minimum |fine - 1| at which a chained refinement acts on the spacing
@@ -485,10 +611,10 @@ class RobustVerifier:
         """
         if self._scan_bank is None:
             with Timer("rx.v2.scan_bank"):
-                self._scan_bank = tables_from_numpy(
-                    {"scan_bank": scaled_template_bank(
-                        self.fs_target, self.profile.oversample)},
-                    self.device, SCAN_TABLE_DTYPES)["scan_bank"]
+                self._scan_bank = device_scan_bank(
+                    scaled_template_bank(self.fs_target,
+                                         self.profile.oversample),
+                    self.device)
         bank = self._scan_bank
         T = signal.size
         Tpad = 1 << max(17, (T + bank.shape[-1] - 1).bit_length())

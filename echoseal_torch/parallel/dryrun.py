@@ -161,6 +161,7 @@ def run(mesh, tables: dict) -> str:
         SCALE_SCAN_GRID,
         RobustEmbedder,
         _scale_scan_batch,
+        device_scan_bank,
     )
     from echoseal_torch.ops import demod
     from echoseal_torch.parallel.mesh import (
@@ -243,7 +244,7 @@ def run(mesh, tables: dict) -> str:
                        for d in range(n_dev)])
     nv2 = np.full(n_dev, T2, dtype=np.int32)
     bv2 = RobustBatchVerifier.from_tables(KEY, tables["v2"], device=dev)
-    bv2._scan_bank = tables["scan_bank"].to(dev)
+    bv2._scan_bank = device_scan_bank(tables["scan_bank"].numpy(), dev)
     run2 = shard_verify_v2(bv2, mesh)
     out2 = run2(clips2, nv2)
     _same_stage(out2, _unsharded(bv2.run_device, n_dev, clips2, nv2), "v2")

@@ -8,8 +8,9 @@ cannot load tests/conftest.py), run it as
 
 The kernel tests skip without a CUDA device: a CUDA kernel has no CPU mode.
 The plain versions they are held against are themselves held against the
-JAX package in tests/test_torch_demod.py, tests/test_torch_payload_decode.py
-and (the SCL list decoder's eager walk) tests/test_torch_scl.py.
+JAX package in tests/test_torch_demod.py, tests/test_torch_payload_decode.py,
+tests/test_torch_scan.py and (the SCL list decoder's eager walk)
+tests/test_torch_scl.py.
 """
 import numpy as np
 import pytest
@@ -53,13 +54,14 @@ def test_payload_llr_rejects_other_devices():
 
 
 def test_kernel_sources_found():
-    assert build.sources() == ["payload_decode", "payload_llr", "scl_decode",
-                               "sync_xcorr"]
+    assert build.sources() == ["payload_decode", "payload_llr", "scale_scan",
+                               "scl_decode", "sync_xcorr"]
     assert build.library_path("payload_llr").name.startswith("libpayload_llr-")
     assert build.library_path("payload_decode").name.startswith(
         "libpayload_decode-")
     assert build.library_path("scl_decode").name.startswith("libscl_decode-")
     assert build.library_path("sync_xcorr").name.startswith("libsync_xcorr-")
+    assert build.library_path("scale_scan").name.startswith("libscale_scan-")
 
 
 def _decode_inputs(n, device, spec, seed=0, lead=None, m=64):
@@ -593,3 +595,71 @@ def test_sync_xcorr_refuses_long_templates():
         demod.sync_xcorr(x, tpl, nv, 1008)
     with pytest.raises(ValueError, match="shapes"):
         demod.sync_xcorr(x[:, :100], tpl[:, :200], nv, 1008)
+
+
+def _scan_rows(rows, T, seed):
+    """``rows`` rows of noise carrying three bank rows each, and ragged
+    lengths: the recovery's 3.5 s cuts, one a segment and a half long, one
+    below the bank's width, one at it, one past T."""
+    from echoseal_torch.models import robust
+
+    bank = robust.scaled_template_bank(48_000, 8)
+    R, L = bank.shape
+    rng = np.random.default_rng(seed)
+    x = (0.1 * rng.standard_normal((rows, T))).astype(np.float32)
+    for i in range(rows):
+        for _ in range(3):
+            s = int(rng.integers(0, T - L))
+            x[i, s:s + L] += 0.5 * bank[int(rng.integers(0, R))]
+    nv = np.full(rows, min(168_000, T), np.int64)
+    H = robust.SCAN_FFT_LEN - L + 1
+    nv[1:5] = (H + H // 2, L - 1, L, T + 7)[:max(rows - 1, 0)]
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(nv).cuda(),
+            robust.device_scan_bank(bank, "cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,T", [(128, 184_384), (1, 1 << 18), (5, 9_000)])
+def test_scale_scan_kernel_on_card(rows, T):
+    """The scan kernel against its plain version on the card: the
+    recovery's chunk of 128 rows of 184 384 samples, the single-clip
+    stage's one padded row, short ragged rows.  Scores within 1e-5, -inf
+    exactly where the plain version has it; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from echoseal_torch.models import robust
+
+    x, nv, bank = _scan_rows(rows, T, rows)
+    before = build.LAUNCHES["scale_scan"]
+    got = robust._scale_scan_batch(x, nv, bank)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["scale_scan"] == before + 1
+    assert got.shape == (rows, bank.shape[0]) and got.dtype == torch.float32
+    want = robust.scale_scan_plain(x, nv, bank)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert not torch.isnan(got).any()
+    fin = torch.isfinite(want)
+    if fin.any():
+        assert float((got - want)[fin].abs().max()) <= 1e-5
+    one = robust._scale_scan_stage(x[0], int(nv[0]), bank)
+    assert build.LAUNCHES["scale_scan"] == before + 2
+    assert torch.equal(one, got[0])
+
+
+@pytest.mark.cuda
+def test_scale_scan_refusals_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from echoseal_torch.models import robust
+
+    x, nv, bank = _scan_rows(2, 20_000, 0)
+    before = dict(build.LAUNCHES)
+    for args in ((x.cpu(), nv, bank), (x, nv.cpu(), bank),
+                 (x, nv, bank.cpu()), (x.double(), nv, bank),
+                 (x, nv.float(), bank), (x, nv, bank.half()),
+                 (x, nv, torch.zeros(4, robust.SCAN_MAX_L + 1,
+                                     device="cuda")),
+                 (x, nv, bank.clone())):       # no spectra table
+        with pytest.raises(ValueError):
+            robust._scale_scan_batch(*args)
+    assert dict(build.LAUNCHES) == before
