@@ -1755,8 +1755,7 @@ def _spy_retries(verifier):
     orig = verifier._retry_scaled
 
     def spy(clips, n_valid, factors, *a, **k):
-        q = verifier.RETRY_UP if k.get("clips_dev") is not None \
-            else verifier.fs
+        q = verifier.RETRY_UP
         calls.append({int(i): int(round(q * f)) for i, f in factors.items()})
         return orig(clips, n_valid, factors, *a, **k)
 
@@ -1767,6 +1766,35 @@ def _spy_retries(verifier):
     return calls, remove
 
 
+def _recover_seconds(spans) -> dict:
+    """Host seconds of one traced ``verify_batch_recover`` call, read from
+    its spans: the first pass, the scan and the deferred escalation, and
+    per retry round its own seconds and its SCL rungs' (``ladder.rung``)."""
+    ids = {s["id"]: s for s in spans}
+
+    def sec(s):
+        return (s["end_ns"] - s["start_ns"]) / 1e9
+
+    def round_of(s):
+        while s["parent"] is not None:
+            s = ids[s["parent"]]
+            if s["name"] == "recover.round":
+                return s["id"]
+        return None
+
+    scl = {}
+    for s in spans:
+        if s["name"] == "ladder.rung":
+            r = round_of(s)
+            scl[r] = scl.get(r, 0.0) + sec(s)
+    rounds = [s for s in spans if s["name"] == "recover.round"]
+    return {**{f"{n}_s": sum(sec(s) for s in spans
+                             if s["name"] == f"recover.{n}")
+               for n in ("first_pass", "scan", "deferred")},
+            "rounds_s": [sec(s) for s in rounds],
+            "rounds_scl_s": [scl.get(s["id"], 0.0) for s in rounds]}
+
+
 def recover_phases(torch, card, rv, cpu, stream):
     """Phases 13-15; returns the kernel launches of the ingest path and of
     the recovery path, and for phase 26 the phase-14 batch on the host
@@ -1775,6 +1803,7 @@ def recover_phases(torch, card, rv, cpu, stream):
 
     from echoseal_torch.ops import build
     from echoseal_torch.utils.channels import time_scale
+    from echoseal_torch.utils.logging import tracing
 
     rng = np.random.default_rng(SEED + 5)
     starts = rng.integers(0, stream.size - T35, B)
@@ -1873,9 +1902,11 @@ def recover_phases(torch, card, rv, cpu, stream):
     torch.cuda.reset_peak_memory_stats()
     build.LAUNCHES.clear()
     t0 = time.perf_counter()
-    rec = rv.verify_batch_recover(scaled, nvs)
+    with tracing() as tr:
+        rec = rv.verify_batch_recover(scaled, nvs)
     torch.cuda.synchronize()
     rec_s = time.perf_counter() - t0
+    secs = _recover_seconds(tr.drain())
     launches_rec = dict(build.LAUNCHES)
     scl_launches("timescale_recover", launches_rec)
     n_chunks = -(-rv.recover_log["scan_rows"] // rv.SCAN_CHUNK)
@@ -1891,26 +1922,24 @@ def recover_phases(torch, card, rv, cpu, stream):
     # again, with the scan bank and every resampler plan now cached
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rec2 = rv.verify_batch_recover(scaled, nvs)
+    with tracing() as tr:
+        rec2 = rv.verify_batch_recover(scaled, nvs)
     rec2_s = time.perf_counter() - t0
     check(rec2.tolist() == rec.tolist(), "second recovery call differs")
-    log2 = rv.recover_log
+    secs2 = _recover_seconds(tr.drain())
     line = {"phase": "timescale_recover", "card": card, "B": B, "clip_s": 3.5,
             "factor": SCALE, "Tpad": TPAD_REC, "accept_plain": float(plain.mean()),
             "accept": accept, "gate": RECOVER_GATE, "seconds": rec_s,
             "audio_s_per_s": B * 3.5 / rec_s,
-            "first_pass_s": log["first_pass_s"], "bank_s": log["bank_s"],
-            "scan_s": log["scan_s"], "scan_rows": log["scan_rows"],
-            "deferred_s": log["deferred_s"],
+            "first_pass_s": secs["first_pass_s"], "scan_s": secs["scan_s"],
+            "scan_rows": log["scan_rows"], "deferred_s": secs["deferred_s"],
             "rounds_run": len(rounds), "rounds": rounds,
             "distinct_dens": len(all_dens),
             "first_round_keys": sorted(set(keys[0].values())) if keys else [],
             "second_call": {
-                "seconds": rec2_s, "first_pass_s": log2["first_pass_s"],
-                "scan_s": log2["scan_s"], "deferred_s": log2["deferred_s"],
-                "rounds_s": [r["s"] for r in log2["rounds"]],
-                "plan_s": sum(r["plan_s"] for r in log2["rounds"]),
-                "scl_s": sum(r["scl_s"] for r in log2["rounds"])},
+                "seconds": rec2_s, **{k: secs2[k] for k in (
+                    "first_pass_s", "scan_s", "deferred_s", "rounds_s")},
+                "scl_s": sum(secs2["rounds_scl_s"])},
             "launches": launches_rec, "peak_mem_gb": peak_gb,
             "rejected": np.flatnonzero(~rec).tolist(), "host_prep_s": prep_s}
     emit(line)
@@ -2462,6 +2491,7 @@ def _verify_row(torch, verifier, clips: np.ndarray, nv: np.ndarray, *,
     """One row on the card: (verdicts, details, measured fields); its
     scl_decode launches are added to ``scl_path``."""
     from echoseal_torch.ops import build
+    from echoseal_torch.utils.logging import tracing
 
     x = torch.from_numpy(clips).cuda()
     rungs = hasattr(verifier, "scl_rungs")
@@ -2473,7 +2503,8 @@ def _verify_row(torch, verifier, clips: np.ndarray, nv: np.ndarray, *,
     details = {}
     t0 = time.perf_counter()
     if recover:
-        v = verifier.verify_batch_recover(x, nv)
+        with tracing() as tr:
+            v = verifier.verify_batch_recover(x, nv)
     elif fs_in is not None:
         v = verifier.verify_batch(x, nv, fs_in=fs_in, details=details)
     else:
@@ -2489,10 +2520,10 @@ def _verify_row(torch, verifier, clips: np.ndarray, nv: np.ndarray, *,
                              build.LAUNCHES.get("scl_decode", 0)),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     if recover:
-        log = verifier.recover_log
-        line.update(scl_s=sum(r["scl_s"] for r in log["rounds"]),
-                    rounds_run=len(log["rounds"]),
-                    deferred_s=log["deferred_s"])
+        secs = _recover_seconds(tr.drain())
+        line.update(scl_s=sum(secs["rounds_scl_s"]),
+                    rounds_run=len(verifier.recover_log["rounds"]),
+                    deferred_s=secs["deferred_s"])
     else:
         line["stages"] = {st: sum(d.stage == st for d in details.values())
                           for st in ("hard", "scl", "ext_ctr")}
@@ -3190,7 +3221,7 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
     from echoseal_torch.models.pipeline import RobustBatchVerifier
     from echoseal_torch.models.robust import RobustVerifier
     from echoseal_torch.ops import build, polar, scl
-    from echoseal_torch.utils.logging import Timer
+    from echoseal_torch.utils.logging import Timer, tracing
 
     t_phase = time.perf_counter()
     line = {"phase": "scl_serving", "card": card}
@@ -3328,11 +3359,13 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
         build.LAUNCHES.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rec = rv.verify_batch_recover(scaled, nvs)
+        with tracing() as tr:
+            rec = rv.verify_batch_recover(scaled, nvs)
         rec_s = time.perf_counter() - t0
         launches_rec = decode_launches(build.LAUNCHES)
         serving_launches("serving_recover", build.LAUNCHES)
     log = rv.recover_log
+    secs = _recover_seconds(tr.drain())
     del scaled
     rec_accept = float(rec.mean())
     check(rec_accept >= RECOVER_GATE,
@@ -3343,10 +3376,11 @@ def scl_serving_phase(torch, card, rv, cpu, ladder_clips, recover_batch,
         "serving_accept": rec_accept, "exact_accept": exact_line["accept"],
         "serving_s": rec_s, "exact_second_call_s": exact2["seconds"],
         "serving_rounds": [{**{k: r[k] for k in (
-            "rows", "host_rows", "dens", "accepted", "s", "plan_s",
-            "scl_s")}, "scl_share": r["scl_s"] / max(r["s"], 1e-9)}
-            for r in log["rounds"]],
-        "serving_scl_s": sum(r["scl_s"] for r in log["rounds"]),
+            "rows", "host_rows", "dens", "accepted")}, "s": t,
+            "scl_s": scl, "scl_share": scl / max(t, 1e-9)}
+            for r, t, scl in zip(log["rounds"], secs["rounds_s"],
+                                 secs["rounds_scl_s"])],
+        "serving_scl_s": sum(secs["rounds_scl_s"]),
         "exact_scl_s": exact2["scl_s"],
         "exact_rounds_s": exact2["rounds_s"]}
 

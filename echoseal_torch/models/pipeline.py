@@ -37,7 +37,6 @@ TF32), so constructing a verifier sets
 """
 from __future__ import annotations
 
-import time
 import typing
 from math import gcd
 
@@ -84,6 +83,16 @@ class ClipDetail(typing.NamedTuple):
     # the retry lattice's rational (1.0: the first pass or the deferred
     # escalation, and every verify_batch accept)
     factor: float = 1.0
+
+
+class _RetryGroup(typing.NamedTuple):
+    """One lattice key's rows in a retry round of ``verify_batch_recover``."""
+
+    rows: torch.Tensor        # (n, Tpad) resampled clips on the device
+    members: list[int]        # their clip indices
+    key: int                  # the RETRY_UP-lattice denominator
+    lengths: list[int]        # their lengths after resampling
+    on_host: bool             # resampled on the host (outside the family)
 
 
 def resolve_sync_dtype(sync_dtype: str | None) -> torch.dtype:
@@ -494,18 +503,7 @@ class BatchVerifier:
         ``details`` (optional dict) collects a ``ClipDetail`` per accepted
         clip index.
         """
-        with Timer("verify_batch", clips=len(clips)) as root:
-            with Timer("verify.device") as sp:
-                out = self.run_device(clips, n_valid,
-                                      marks=sp.marks_for(self.device))
-            with Timer("verify.download") as sp:
-                packed = out["host_packed"].cpu().numpy()
-                # n_valid == 0 rows are padding: they can never verify, so
-                # they must not trigger escalation
-                real = (torch.as_tensor(n_valid).cpu().numpy() > 0
-                        if n_valid is not None
-                        else np.ones(packed.shape[0], bool))
-                sp.attrs["bytes"] = packed.nbytes
+        def finish(out, packed, real):
             verdicts, _ = self.finish_host_detailed(
                 out, expected_nonce=expected_nonce, details=details,
                 packed=packed)
@@ -515,8 +513,34 @@ class BatchVerifier:
                     verdicts |= self._extended_counter_pass(
                         out, pending, expected_nonce, max_stream_frames,
                         details=details)
+            return verdicts
+        return self._verify_call(clips, n_valid, finish)
+
+    def _verify_call(self, clips, n_valid, finish, ingest=None) -> np.ndarray:
+        """The body of both tiers' ``verify_batch``: under the root span,
+        ``ingest(clips, n_valid)`` when given (-> the clips and lengths to
+        verify), the device stage, the one download of the host row, then
+        ``finish(out, packed, real)`` -> (B,) verdicts.  ``real`` masks the
+        padding rows (``n_valid == 0``): they can never verify, so they
+        must not escalate."""
+        with Timer("verify_batch", clips=len(clips)) as root:
+            if ingest is not None:
+                clips, n_valid = ingest(clips, n_valid)
+            with Timer("verify.device") as sp:
+                out = self.run_device(clips, n_valid,
+                                      marks=sp.marks_for(self.device))
+            packed = self._download_row(out)
+            verdicts = finish(out, packed, _lengths_np(n_valid, clips) > 0)
             root.attrs["accepts"] = int(verdicts.sum())
         return verdicts
+
+    def _download_row(self, out) -> np.ndarray:
+        """The packed host row of the stage outputs ``out`` (one download,
+        the span ``verify.download``)."""
+        with Timer("verify.download") as sp:
+            packed = out["host_packed"].cpu().numpy()
+            sp.attrs["bytes"] = packed.nbytes
+        return packed
 
     def _extended_counter_pass(self, out, mask: np.ndarray,
                                expected_nonce: bytes | None,
@@ -601,9 +625,7 @@ class BatchVerifier:
         caller has already downloaded it.
         """
         if packed is None:
-            with Timer("verify.download") as sp:
-                packed = out["host_packed"].cpu().numpy()
-                sp.attrs["bytes"] = packed.nbytes
+            packed = self._download_row(out)
         packed = packed.astype(np.int64)
         ok = packed[:, 0] > 0
         ctrs = ((packed[:, 1] << 24) | (packed[:, 2] << 16)
@@ -736,9 +758,7 @@ class RobustBatchVerifier(BatchVerifier):
                  accept_legacy_plaintext: bool = False,
                  futility_qfloor: float | None = None,
                  device: str | torch.device | None = None) -> None:
-        if table_dtype not in (None, "f32"):
-            raise ValueError(f"table_dtype={table_dtype!r}: the port stores "
-                             "its v2 tables in float32 only ('f32' or None)")
+        robust.resolve_table_dtype(table_dtype)
         device = resolve_device(device)
         profile = ROBUST if profile is None else profile
         sec = SecureChannel(key32)
@@ -769,15 +789,13 @@ class RobustBatchVerifier(BatchVerifier):
         self.scl_rungs: list[tuple[str, int, int, float]] = []
         self._resamplers: dict[tuple, DeviceResampler] = {}
         self._scan_bank: torch.Tensor | None = None
-        # what the last verify_batch_recover did, in host seconds:
-        # "first_pass_s", "bank_s" (building the scan bank, first time
-        # only), "scan_rows", "scan_s", "deferred_s"; its counters
-        # "retry_rows" (rows re-verified over all rounds), "dens" (the
-        # distinct retry denominators), "host_rows" (rows resampled on the
-        # host); and per dispatched retry round {"rows", "host_rows",
-        # "dens", "accepted", "s", "plan_s" (resampler FIR designs),
-        # "scl_s" (its SCL rungs), "clips" and "keys" (each re-verified
-        # row's clip and lattice key, in the order of the round's batch)}
+        # what the last verify_batch_recover tried: "scan_rows" (clips
+        # scanned), the counters "retry_rows" (rows re-verified over all
+        # rounds), "dens" (the distinct retry denominators), "host_rows"
+        # (rows resampled on the host); and per dispatched retry round
+        # {"rows", "host_rows", "dens", "accepted", "clips" and "keys" (each
+        # re-verified row's clip and lattice key, in the order of the
+        # round's batch)}.  Its seconds are the recover.* spans'.
         self.recover_log: dict = {"rounds": []}
 
     # ------------------------------------------------------------------ API
@@ -807,25 +825,19 @@ class RobustBatchVerifier(BatchVerifier):
         (``_ingest``), the batch-tier equivalent of a host ``resample_to``
         per clip; ``n_valid`` is then given in INPUT samples.
         """
-        with Timer("verify_batch", clips=len(clips)) as root:
-            if fs_in is not None and int(fs_in) != self.fs:
+        ingest = None
+        if fs_in is not None and int(fs_in) != self.fs:
+            def ingest(clips, n_valid):
                 with Timer("ingest.download"):
                     n_in = _lengths_np(n_valid, clips)
                 with Timer("verify.ingest"):
-                    clips, n_valid = self._ingest(clips, n_in, int(fs_in))
-            with Timer("verify.device") as sp:
-                out = self.run_device(clips, n_valid,
-                                      marks=sp.marks_for(self.device))
-            with Timer("verify.download") as sp:
-                real = (_lengths_np(n_valid, clips) > 0
-                        if n_valid is not None else None)
-                packed = out["host_packed"].cpu().numpy()
-                sp.attrs["bytes"] = packed.nbytes
-            verdicts = self._finish_ladder(out, expected_nonce, use_scl,
-                                           max_stream_frames, real=real,
-                                           details=details, packed=packed)
-            root.attrs["accepts"] = int(verdicts.sum())
-        return verdicts
+                    return self._ingest(clips, n_in, int(fs_in))
+        return self._verify_call(
+            clips, n_valid,
+            lambda out, packed, real: self._finish_ladder(
+                out, expected_nonce, use_scl, max_stream_frames, real=real,
+                details=details, packed=packed),
+            ingest)
 
     def _resampler(self, up: int, down_min: int, down_max: int,
                    t_in: int) -> DeviceResampler:
@@ -924,9 +936,7 @@ class RobustBatchVerifier(BatchVerifier):
         """
         self.scl_rungs = []
         if packed is None:
-            with Timer("verify.download") as sp:
-                packed = out["host_packed"].cpu().numpy()
-                sp.attrs["bytes"] = packed.nbytes
+            packed = self._download_row(out)
         verdicts, _ = self.finish_host_detailed(
             out, expected_nonce=expected_nonce, details=details, packed=packed)
         if real is None:
@@ -990,9 +1000,7 @@ class RobustBatchVerifier(BatchVerifier):
         ``host_rows``) > ``recover.first_pass``, ``recover.scan``,
         ``recover.round`` (> ``recover.resample``), ``recover.deferred``.
         """
-        log = self.recover_log = {"first_pass_s": 0.0, "bank_s": 0.0,
-                                  "scan_rows": 0, "scan_s": 0.0,
-                                  "deferred_s": 0.0, "retry_rows": 0,
+        log = self.recover_log = {"scan_rows": 0, "retry_rows": 0,
                                   "dens": [], "host_rows": 0, "rounds": []}
         with Timer("verify_batch_recover", clips=len(clips)) as root:
             verdicts = self._recover(clips, n_valid, expected_nonce, fs_in,
@@ -1020,8 +1028,6 @@ class RobustBatchVerifier(BatchVerifier):
         else:
             clips_dev = torch.as_tensor(clips, dtype=torch.float32,
                                         device=self.device)
-        log = self.recover_log
-        t0 = time.perf_counter()
         real = n_valid > 0
         with Timer("recover.first_pass") as sp:
             marks = sp.marks_for(self.device)
@@ -1038,15 +1044,10 @@ class RobustBatchVerifier(BatchVerifier):
             verdicts = self._finish_ladder(out, expected_nonce, False, 0,
                                            real=real, details=details)
         fail = np.flatnonzero(real & ~verdicts)
-        log["first_pass_s"] = time.perf_counter() - t0
         if fail.size == 0:
             return verdicts
 
-        t0 = time.perf_counter()
-        if self._scan_bank is None:
-            self._device_scan_bank()
-            log["bank_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        bank = self._device_scan_bank()
         chunks = range(0, fail.size, self.SCAN_CHUNK)
         with Timer("recover.scan", rows=int(fail.size),
                    chunks=len(chunks)) as sp:
@@ -1057,22 +1058,46 @@ class RobustBatchVerifier(BatchVerifier):
                 idx = torch.as_tensor(fail[c0:c0 + self.SCAN_CHUNK],
                                       device=self.device)
                 score_parts.append(robust._scale_scan_batch(
-                    clips_dev[idx], nv_dev[idx], self._scan_bank))
+                    clips_dev[idx], nv_dev[idx], bank))
             _mark(marks, "scan")
             with Timer("scan.download") as dl:
                 scores = np.concatenate(
                     [np.asarray(torch.as_tensor(p).cpu())
                      for p in score_parts])
                 dl.attrs["bytes"] = scores.nbytes
-        log.update(scan_rows=int(fail.size), scan_s=time.perf_counter() - t0)
+        self.recover_log["scan_rows"] = int(fail.size)
+        factors, fallback = self._scan_factors(scores, fail, out)
+        # depth 4: a clip whose correct-basin factor is only reached by
+        # the fallback queue still needs a round for its sub-lattice
+        # residual; rounds with no candidates cost nothing
+        verdicts = self._retry_scaled(clips_host, nv_host, factors, verdicts,
+                                      expected_nonce, refine=4,
+                                      clips_dev=clips_dev, nv_dev=n_valid,
+                                      fs_host=fs_host, fallback=fallback,
+                                      details=details)
+        left = real & ~verdicts
+        if left.any():          # the deferred escalation
+            with Timer("recover.deferred", rows=int(left.sum())):
+                verdicts |= self._finish_ladder(out, expected_nonce, True,
+                                                1 << 20, real=left,
+                                                details=details)
+        return verdicts
 
+    def _scan_factors(self, scores: np.ndarray, fail: np.ndarray, out
+                      ) -> tuple[dict[int, float], dict[int, list[float]]]:
+        """The first retry round's factors and each clip's fallback queue.
+
+        ``scores`` are the scan's (len(fail), 31 * 4) scores of the failing
+        clips ``fail``, ``out`` the first pass's stage outputs.  Returns
+        ({clip: factor}, {clip: [fallback factors, in order]}).
+        """
         grid = np.asarray(robust.SCALE_SCAN_GRID)
         per = scores.reshape(fail.size, grid.size, 4).max(axis=2)
         f = grid[np.argmax(per, axis=1)]
         # NO evidence gate here: a retry row in the batched re-verify is
         # nearly free, while a gated-out scaled clip is lost for good.  A
         # junk factor cannot false-accept (AEAD) and the deferred
-        # escalation below still covers the un-scaled failure modes.
+        # escalation still covers the un-scaled failure modes.
         # Clips whose scan argmax is the identity get the inter-peak-
         # spacing estimate from the ORIGINAL device outputs instead:
         # sub-grid residuals show up there, not in the 0.33%-step scan.
@@ -1112,23 +1137,7 @@ class RobustBatchVerifier(BatchVerifier):
                     break
             if alts:
                 fallback[int(i)] = alts
-        # depth 4: a clip whose correct-basin factor is only reached by
-        # the fallback queue still needs a round for its sub-lattice
-        # residual; rounds with no candidates cost nothing
-        verdicts = self._retry_scaled(clips_host, nv_host, factors, verdicts,
-                                      expected_nonce, refine=4,
-                                      clips_dev=clips_dev, nv_dev=n_valid,
-                                      fs_host=fs_host, fallback=fallback,
-                                      details=details)
-        left = real & ~verdicts
-        if left.any():          # the deferred escalation
-            t0 = time.perf_counter()
-            with Timer("recover.deferred", rows=int(left.sum())):
-                verdicts |= self._finish_ladder(out, expected_nonce, True,
-                                                1 << 20, real=left,
-                                                details=details)
-            log["deferred_s"] = time.perf_counter() - t0
-        return verdicts
+        return factors, fallback
 
     # retry-lattice denominator: factors quantize to RETRY_UP-lattice
     # rationals (granularity 1/RETRY_UP = 8.3e-5, ~2.4x inside the demod's
@@ -1168,21 +1177,24 @@ class RobustBatchVerifier(BatchVerifier):
 
     def _retry_scaled(self, clips, n_valid, factors: dict[int, float],
                       verdicts: np.ndarray, expected_nonce: bytes | None,
-                      refine: int, clips_dev=None, nv_dev=None,
+                      refine: int, clips_dev, nv_dev,
                       fs_host: int | None = None,
                       fallback: dict[int, list[float]] | None = None,
                       tried: dict[int, set] | None = None,
                       details: dict[int, ClipDetail] | None = None,
                       depth: int = 0) -> np.ndarray:
-        """Group-resample ``factors`` clips, re-verify, optionally refine.
+        """One retry round, then the next (``refine`` more at most).
 
-        With ``clips_dev`` (the clip batch on the device) the correction
-        resamples there (``ops/resample.py``) on the ``RETRY_UP`` lattice,
-        so both the coarse grid factors and the peak-spacing refinements
-        stay on the device; the host ``resample_poly`` path remains for
-        factor groups outside the device family (``RETRY_REACH``) and for
-        callers without a device batch, and computes the same rational
-        correction on the ``fs`` lattice.
+        The ``factors`` clips are grouped by their key on the ``RETRY_UP``
+        lattice, resampled per group, re-verified in one stage with the
+        full ladder, and the still-failing ones get their next factor
+        (``_next_factors``).  ``clips_dev`` is the clip batch on the device
+        at ``self.fs`` and ``nv_dev`` its lengths.  A group whose key lies
+        in the device resampler's family (``RETRY_REACH``) resamples there;
+        any other group resamples on the host from ``clips``, the capture
+        at ``fs_host`` with lengths ``n_valid`` (when None, from one host
+        copy of ``clips_dev``), in one polyphase pass that composes the
+        rate conversion with the same rational correction.
         ``tried`` collects, per clip, the lattice keys attempted;
         ``details`` the accepts, each with its lattice factor; ``depth``
         counts the rounds before this one (the span ``recover.round``).
@@ -1191,21 +1203,18 @@ class RobustBatchVerifier(BatchVerifier):
 
         if not factors:
             return verdicts
+        q = self.RETRY_UP
         with Timer("recover.round", depth=depth) as span:
-            t_round = time.perf_counter()
-            log = self.recover_log
             # the retry batch lives on the device timeline at self.fs; the
             # host clips may be at another capture rate (fs_host, from the
             # verify_batch_recover(fs_in=...) ingest composition)
             fs_host = self.fs if fs_host is None else int(fs_host)
-            nv_dev = (n_valid if nv_dev is None
-                      else np.asarray(nv_dev, np.int32))
-            Tpad = (clips_dev.shape[1] if clips_dev is not None
-                    else clips.shape[1])
-            # group by RETRY_UP-lattice denominator, not raw float factor:
-            # per-clip refinement estimates that quantize to the same den
-            # must share one resample pass (and one cached tap table)
-            q = self.RETRY_UP if clips_dev is not None else self.fs
+            nv_dev = np.asarray(nv_dev, np.int32)
+            Tpad = clips_dev.shape[1]
+            rs = self._device_resampler(Tpad)
+            # group by lattice key, not raw float factor: per-clip
+            # refinement estimates that quantize to the same key must share
+            # one resample pass (and one cached tap table)
             tried = {} if tried is None else tried
             groups: dict[int, list[int]] = {}
             rep_f: dict[int, float] = {}
@@ -1214,30 +1223,13 @@ class RobustBatchVerifier(BatchVerifier):
                 tried.setdefault(i, set()).add(key)
                 groups.setdefault(key, []).append(i)
                 rep_f.setdefault(key, float(f))
+            # identity: re-verifying the same clip is a no-op and the
+            # resampler rejects factor 1.0
+            groups.pop(q, None)
 
-            # device rows are concatenated ahead of host rows, so the
-            # bookkeeping (sel / nv2 / keys) is kept in matching (device,
-            # host) halves
-            sel_d: list[int] = []
-            sel_h: list[int] = []
-            keys_d: list[int] = []
-            keys_h: list[int] = []
-            rows: list[np.ndarray] = []
-            dev_rows: list[torch.Tensor] = []
-            nv2_d: list[int] = []
-            nv2_h: list[int] = []
-            dens: list[int] = []
-            rs = (self._device_resampler(Tpad) if clips_dev is not None
-                  else None)
-            plan_s0 = rs.plan_s if rs is not None else 0.0
+            recs: list[_RetryGroup] = []
             for den, members in groups.items():
-                # the group key IS the denominator on the ``q`` lattice
-                # (q == rs.up when a device batch exists, else self.fs)
-                if rs is not None and den == rs.up:
-                    continue    # identity: re-verifying the same clip is a
-                                # no-op and the resampler rejects factor 1.0
-                dens.append(den)
-                if rs is not None and rs.down_min <= den <= rs.down_max:
+                if rs.down_min <= den <= rs.down_max:
                     with Timer("recover.resample", rows=len(members),
                                den=den) as rsp:
                         marks = rsp.marks_for(self.device)
@@ -1246,135 +1238,75 @@ class RobustBatchVerifier(BatchVerifier):
                         y, n_out = rs(clips_dev[midx], den)
                         _mark(marks, "resample")
                         rsp.attrs["miss"] = rs.misses - misses
-                    dev_rows.append(y[:, :Tpad])
                     L = min(n_out, Tpad)
-                    sel_d.extend(members)
-                    keys_d.extend([den] * len(members))
-                    nv2_d.extend(min(int(int(nv_dev[i]) * rs.up / den), L)
-                                 for i in members)
-                else:
-                    # straight from the original-rate host clips: the rate
-                    # conversion and the speed correction compose into ONE
-                    # rational polyphase pass (up=fs, down=fs_host*factor)
-                    if clips is None:
-                        # device-resident caller: materialise host bytes
-                        # once (only out-of-family factors reach this
-                        # branch).  The rows live on the INGESTED device
-                        # timeline at self.fs, not at the fs_host capture
-                        # rate -- rebase the host-path rate and lengths, or
-                        # a 44.1 kHz fs_in caller gets a spurious ~8.8%
-                        # extra speed shift here.
-                        clips = clips_dev.cpu().numpy()
-                        fs_host = self.fs
-                        n_valid = nv_dev
-                    den_h = int(round(fs_host * rep_f[den]))
-                    g = gcd(self.fs, den_h)
-                    y = resample_poly(clips[members], self.fs // g,
-                                      den_h // g, axis=-1).astype(np.float32)
-                    L = min(y.shape[1], Tpad)
-                    for r in range(len(members)):
-                        row = np.zeros(Tpad, np.float32)
-                        row[:L] = y[r, :L]
-                        rows.append(row)
-                    sel_h.extend(members)
-                    keys_h.extend([den] * len(members))
-                    nv2_h.extend(
-                        min(int(int(n_valid[i]) * self.fs / den_h), L)
-                        for i in members)
-            sel = sel_d + sel_h
-            span.attrs.update(rows=len(sel), host_rows=len(sel_h),
+                    recs.append(_RetryGroup(
+                        y[:, :Tpad], members, den,
+                        [min(int(int(nv_dev[i]) * q / den), L)
+                         for i in members], False))
+                    continue
+                if clips is None:
+                    # device-resident caller: materialise host bytes once.
+                    # The rows live on the INGESTED device timeline at
+                    # self.fs, not at the fs_host capture rate -- rebase
+                    # the host-path rate and lengths, or a 44.1 kHz fs_in
+                    # caller gets a spurious ~8.8% extra speed shift here.
+                    clips, n_valid, fs_host = (clips_dev.cpu().numpy(),
+                                               nv_dev, self.fs)
+                den_h = int(round(fs_host * rep_f[den]))
+                g = gcd(self.fs, den_h)
+                y = resample_poly(clips[members], self.fs // g, den_h // g,
+                                  axis=-1)
+                L = min(y.shape[1], Tpad)
+                rows = np.zeros((len(members), Tpad), np.float32)
+                rows[:, :L] = y[:, :L]
+                recs.append(_RetryGroup(
+                    torch.as_tensor(rows, device=self.device), members, den,
+                    [min(int(int(n_valid[i]) * self.fs / den_h), L)
+                     for i in members], True))
+            # the round's batch: device groups first, then host groups,
+            # each in the order the clips' factors came
+            recs.sort(key=lambda r: r.on_host)
+            sel = [i for r in recs for i in r.members]
+            keys = [r.key for r in recs for _ in r.members]
+            host_rows = sum(len(r.members) for r in recs if r.on_host)
+            dens = sorted(r.key for r in recs)
+            span.attrs.update(rows=len(sel), host_rows=host_rows,
                               dens=len(dens), accepted=0)
             if not sel:             # every group was the lattice identity
                 return verdicts
-            keys = keys_d + keys_h
-            parts = list(dev_rows)
-            if rows:
-                parts.append(torch.as_tensor(np.stack(rows),
-                                             device=self.device))
-            batch = parts[0] if len(parts) == 1 else torch.cat(parts)
-            nv2_arr = np.asarray(nv2_d + nv2_h, np.int32)
-            out = self.run_device(batch, nv2_arr)
+            batch = (recs[0].rows if len(recs) == 1
+                     else torch.cat([r.rows for r in recs]))
+            nv2 = np.asarray([n for r in recs for n in r.lengths], np.int32)
+            out = self.run_device(batch, nv2)
             # drop THIS round's staging buffers before the ladder and the
-            # recursion: each refinement level would otherwise pin its own
-            # batch of resampled rows down the recursion
-            del batch, parts, dev_rows
+            # next round: each round would otherwise pin its own batch of
+            # resampled rows down the recursion
+            del batch, recs
             got = {} if details is not None else None
             vr = self._finish_ladder(out, expected_nonce, True, 1 << 20,
-                                     real=nv2_arr > 0, details=got)
+                                     real=nv2 > 0, details=got)
             for r, d in (got or {}).items():
                 if not verdicts[sel[r]]:
                     details[sel[r]] = d._replace(factor=keys[r] / q)
             for r, i in enumerate(sel):
                 verdicts[i] |= vr[r]
             span.attrs["accepted"] = int(vr.sum())
+            log = self.recover_log
             log["retry_rows"] = log.get("retry_rows", 0) + len(sel)
-            log["host_rows"] = log.get("host_rows", 0) + len(sel_h)
+            log["host_rows"] = log.get("host_rows", 0) + host_rows
             log["rounds"].append(
-                {"rows": len(sel), "host_rows": len(sel_h),
-                 "dens": sorted(dens), "accepted": int(vr.sum()),
-                 "s": time.perf_counter() - t_round,
-                 "plan_s": (rs.plan_s if rs is not None else 0.0) - plan_s0,
-                 "scl_s": sum(r[3] for r in self.scl_rungs),
-                 "clips": list(sel), "keys": keys})
+                {"rows": len(sel), "host_rows": host_rows, "dens": dens,
+                 "accepted": int(vr.sum()), "clips": sel, "keys": keys})
             if refine <= 0:
                 return verdicts
-
-            # chained inter-peak-spacing refinement, depth = ``refine``
-            # rounds.  A clip whose failed retry shows NO usable spacing
-            # estimate (wrong-basin factor -> no peaks) pulls its next
-            # fallback candidate instead of dropping out.  ``tried``
-            # dedupes on the retry lattice so a fallback that merely
-            # re-quantizes to an already-attempted rational is skipped.
-            peaks_all = _valid_peaks(out)
+            peaks = _valid_peaks(out)
             # this round's stage outputs (chips + soft rows) are fully
-            # consumed now -- free them BEFORE the recursion so only one
+            # consumed now -- free them BEFORE the next round so only one
             # round's outputs are ever live
             del out
-            nxt: dict[int, float] = {}
-            for r, i in enumerate(sel):
-                if verdicts[i]:
-                    continue
-                cand = None
-                fine = robust.estimate_timescale_from_peaks(peaks_all[r],
-                                                            self.span)
-                # lower bound FINE_CHAIN_MIN, not 1e-4: that would mask
-                # the retry lattice's own quantization residual (up to
-                # ~8.3e-5 off the scan pick).  Upper bound 2%: a chained
-                # estimate measures the RESIDUAL after a correction was
-                # applied, so a large value is estimator junk (few/noisy
-                # spacings), not signal -- a wrong-basin retry's true
-                # residual is ~6%+, outside the estimator's own 6% gate
-                # anyway, and basin hops are the fallback queue's job.
-                if (fine is not None and
-                        robust.FINE_CHAIN_MIN < abs(fine - 1.0) <= 0.02):
-                    c = factors[i] * fine
-                    # k == q is the identity on the retry lattice: a
-                    # chained estimate that cancels (f1 * fine -> ~1.0)
-                    # must fall through to the fallback queue, not reach
-                    # the resampler (which raises on factor 1.0)
-                    k = int(round(q * c))
-                    if k != q and k not in tried[i]:
-                        cand = c
-                while cand is None and fallback and fallback.get(i):
-                    c = fallback[i].pop(0)
-                    k = int(round(q * c))
-                    if k != q and k not in tried.get(i, set()):
-                        cand = c
-                if cand is None:
-                    # last resort: the retry lattice's own quantization
-                    # neighbours of the factor just tried.  A clip can
-                    # sit a half-lattice-step (~4e-5) off its best
-                    # rational and fail there while the adjacent step
-                    # decodes, with no peak-spacing estimate to chain
-                    # from.
-                    k0 = int(round(q * factors[i]))
-                    for k in (k0 + 1, k0 - 1):
-                        if k != q and k not in tried.get(i, set()):
-                            cand = k / q
-                            break
-                if cand is not None:
-                    nxt[i] = cand
-        # the recursion runs after this round's span has closed, so each
+            nxt = self._next_factors(sel, peaks, factors, verdicts, tried,
+                                     fallback)
+        # the next round runs after this round's span has closed, so each
         # ``recover.round`` holds its own round's work alone
         return self._retry_scaled(clips, n_valid, nxt, verdicts,
                                   expected_nonce, refine=refine - 1,
@@ -1382,6 +1314,67 @@ class RobustBatchVerifier(BatchVerifier):
                                   fs_host=fs_host, fallback=fallback,
                                   tried=tried, details=details,
                                   depth=depth + 1)
+
+    def _next_factors(self, sel: list[int], peaks: np.ndarray,
+                      factors: dict[int, float], verdicts: np.ndarray,
+                      tried: dict[int, set],
+                      fallback: dict[int, list[float]] | None
+                      ) -> dict[int, float]:
+        """The next round's factor of each still-failing clip of a round.
+
+        ``sel`` are the round's clips in the order of its batch, ``peaks``
+        its (rows, 4, P) valid peaks, ``factors`` the factors it tried.
+        Chained inter-peak-spacing refinement first; a clip whose failed
+        retry shows NO usable spacing estimate (wrong-basin factor -> no
+        peaks) pulls its next ``fallback`` candidate instead (the queue is
+        consumed); then the lattice neighbours of the factor just tried.
+        ``tried`` dedupes on the retry lattice, so a candidate that merely
+        re-quantizes to an already-attempted rational is skipped.
+        """
+        q = self.RETRY_UP
+        nxt: dict[int, float] = {}
+        for r, i in enumerate(sel):
+            if verdicts[i]:
+                continue
+            cand = None
+            fine = robust.estimate_timescale_from_peaks(peaks[r], self.span)
+            # lower bound FINE_CHAIN_MIN, not 1e-4: that would mask the
+            # retry lattice's own quantization residual (up to ~8.3e-5 off
+            # the scan pick).  Upper bound 2%: a chained estimate measures
+            # the RESIDUAL after a correction was applied, so a large value
+            # is estimator junk (few/noisy spacings), not signal -- a
+            # wrong-basin retry's true residual is ~6%+, outside the
+            # estimator's own 6% gate anyway, and basin hops are the
+            # fallback queue's job.
+            if (fine is not None and
+                    robust.FINE_CHAIN_MIN < abs(fine - 1.0) <= 0.02):
+                c = factors[i] * fine
+                # k == q is the identity on the retry lattice: a chained
+                # estimate that cancels (f1 * fine -> ~1.0) must fall
+                # through to the fallback queue, not reach the resampler
+                # (which raises on factor 1.0)
+                k = int(round(q * c))
+                if k != q and k not in tried[i]:
+                    cand = c
+            while cand is None and fallback and fallback.get(i):
+                c = fallback[i].pop(0)
+                k = int(round(q * c))
+                if k != q and k not in tried.get(i, set()):
+                    cand = c
+            if cand is None:
+                # last resort: the retry lattice's own quantization
+                # neighbours of the factor just tried.  A clip can sit a
+                # half-lattice-step (~4e-5) off its best rational and fail
+                # there while the adjacent step decodes, with no
+                # peak-spacing estimate to chain from.
+                k0 = int(round(q * factors[i]))
+                for k in (k0 + 1, k0 - 1):
+                    if k != q and k not in tried.get(i, set()):
+                        cand = k / q
+                        break
+            if cand is not None:
+                nxt[i] = cand
+        return nxt
 
     # ----------------------------------------------------------- SCL stage
     def _scl_fallback(self, out, mask: np.ndarray,

@@ -36,7 +36,6 @@ path this mirrors is reference utils.py:58-66 (``resample_to``).
 from __future__ import annotations
 
 import functools
-import time
 from math import gcd
 
 import numpy as np
@@ -211,13 +210,11 @@ class DeviceResampler:
         # serving process must not leak device memory to factor churn.
         self._plans: dict[int, tuple] = {}
         self._plans_cap = 256
-        self.plan_s = 0.0     # host seconds spent designing missed plans
         self.misses = 0       # plans designed (cache misses), ever
 
     def _plan_dev(self, down: int):
         plan = self._plans.pop(down, None)
         if plan is None:
-            t0 = time.perf_counter()
             taps, off, s0 = resample_plan(self.up, down, self.k_taps)
             if (s0 < -self.pad_left
                     or int(off.max()) + self.k_taps > self.width):
@@ -228,7 +225,6 @@ class DeviceResampler:
                     torch.as_tensor(off, device=self.device), s0)
             while len(self._plans) >= self._plans_cap:
                 self._plans.pop(next(iter(self._plans)))
-            self.plan_s += time.perf_counter() - t0
             self.misses += 1
         self._plans[down] = plan          # (re-)insert at LRU tail
         return plan

@@ -23,6 +23,7 @@ from echoseal_torch.core.profiles import ROBUST
 from echoseal_torch.models import pipeline as PP
 from echoseal_torch.models import robust as probust
 from echoseal_torch.utils import channels as pchannels
+from echoseal_torch.utils.logging import tracing
 from echoseal_tpu.models import pipeline as JPL
 from echoseal_tpu.models import robust as jrobust
 from echoseal_tpu.utils import channels as jchannels
@@ -246,11 +247,16 @@ def test_robust_batch_timescale_recovery(both, wm, monkeypatch):
     jv, pv = both
     clips, nv = _rows([pchannels.time_scale(wm, f) for f in (1.031, 0.978)])
     assert not pv.verify_batch(clips, nv).any()         # hidden without it
-    v, rounds = _recover_both(both, clips, nv, monkeypatch)
+    with tracing() as tr:
+        v, rounds = _recover_both(both, clips, nv, monkeypatch)
     assert v.all()
     assert rounds[0] == {0: 11640, 1: 12280}            # the scan's picks
+    spans = tr.drain()
+    assert any(s["name"] == "recover.first_pass" for s in spans)
+    (scan,) = [s for s in spans if s["name"] == "recover.scan"]
+    assert scan["attrs"]["rows"] == 2
     log = pv.recover_log
-    assert log["scan_rows"] == 2 and log["scan_s"] > 0
+    assert log["scan_rows"] == 2
     assert log["rounds"][0]["rows"] == 2 and log["rounds"][0]["host_rows"] == 0
     assert log["rounds"][0]["dens"] == [11640, 12280]
     assert (12_000, 10_510, 13_642, TPAD) in pv._resamplers
@@ -374,6 +380,29 @@ def test_device_resident_fs_in_host_fallback_rate(both, wm):
     assert j_out.tolist() == out.tolist()
 
 
+def test_mixed_round_device_and_host_rows(both, wm, monkeypatch):
+    """One round with a row resampled on the device (0.97, in the family)
+    and one on the host (6/5, past it): one stage re-verifies both, the
+    device group ahead of the host group, each accept at its factor."""
+    _, pv = both
+    slow = resample_poly(wm.astype(np.float64), 6, 5).astype(np.float32)
+    clips, nv = _rows([pchannels.time_scale(wm, 1.031), slow])
+    runs = []
+    run = pv.run_device
+    monkeypatch.setattr(pv, "run_device",
+                        lambda *a, **k: runs.append(1) or run(*a, **k))
+    details = {}
+    out = pv._retry_scaled(None, nv, {0: 0.97, 1: 1.2}, np.zeros(2, bool),
+                           None, refine=0, clips_dev=torch.from_numpy(clips),
+                           nv_dev=nv, fs_host=FS, details=details)
+    assert len(runs) == 1
+    last = pv.recover_log["rounds"][-1]
+    assert last["clips"] == [0, 1] and last["keys"] == [11640, 14400]
+    assert last["host_rows"] == 1 and last["rows"] == 2
+    assert out.tolist() == [True, True]
+    assert {i: d.factor for i, d in details.items()} == {0: 0.97, 1: 1.2}
+
+
 def test_retry_identity_lattice_guard(both, v2_batch):
     """Retry factors that quantize to the lattice identity are skipped."""
     jv, pv = both
@@ -416,10 +445,13 @@ def test_recover_expected_nonce_and_all_pass_shortcut(both, wm):
     anti-replay hook reaches the retry re-verify."""
     _, pv = both
     clips, nv = _rows([wm])
-    assert pv.verify_batch_recover(clips, nv).tolist() == [True]
+    with tracing() as tr:
+        assert pv.verify_batch_recover(clips, nv).tolist() == [True]
+    names = [s["name"] for s in tr.drain()]
+    assert "recover.first_pass" in names
+    assert "recover.scan" not in names and "recover.deferred" not in names
     log = pv.recover_log
-    assert log["first_pass_s"] > 0 and log["rounds"] == []
-    assert (log["scan_rows"], log["scan_s"], log["deferred_s"]) == (0, 0.0, 0.0)
+    assert log["rounds"] == [] and log["scan_rows"] == 0
     scaled, nvs = _rows([pchannels.time_scale(wm, 0.978)])
     assert not pv.verify_batch_recover(
         scaled, nvs, expected_nonce=b"another!").any()
