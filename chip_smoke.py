@@ -56,6 +56,11 @@ line):
    the picked factor the same but for ties; its time beside the plain
    version's, the cuFFT full-length scan it replaced (``library_ms``) and
    the bound (fp32 FFT operations against the rows and energies read);
+   (g) ``resample``, the recovery's polyphase resample, against the torch
+   loop ``resample._resample_stage`` it replaced, at a recovery call's
+   retried rows (RS_ROWS x RS_T at key RS_DEN): relative error within
+   RESAMPLE_TOL; its time beside the loop's and the bound (the rows read
+   and written once);
 4. compat main path at full width: a 4096-frame stream from the port's
    host TX (every random byte drawn from ``SEED``), B = 1024 clips of 3 s
    at 48 kHz cut at frame-aligned random starts,
@@ -217,7 +222,9 @@ serving legs must launch it never, its exact legs count theirs.  Every
 serving decode on the card is one launch of ``scl_serving``: phase 26's
 decoder, ladder, recovery and single-clip legs add theirs to a path
 (``SERVING_BY_PATH``), and each must have launched it.  Phase 14's
-recovery call must launch ``scale_scan`` once per scan chunk.
+recovery call must launch ``scale_scan`` once per scan chunk and
+``resample`` once per lattice group (one a ``recover.resample`` span,
+which carries ``launches``); phase 13's ingest call ``resample`` once.
 
 Before the last line it prints ``{"kernels": [...]}``: each kernel at the
 v2 path's shape (``scl_decode`` and ``scl_serving`` at the ladder's first
@@ -375,6 +382,8 @@ SERVING_BY_PATH: dict[str, int] = {}
 SYNC_BY_PATH: dict[str, int] = {}
 # path -> scale_scan launches of one recovery call (phase 14)
 SCAN_BY_PATH: dict[str, int] = {}
+# path -> resample launches of one ingest call (13) and recovery call (14)
+RESAMPLE_BY_PATH: dict[str, int] = {}
 
 
 def serving_launches(path: str, launches, least: int = 1) -> int:
@@ -778,6 +787,67 @@ def scan_kernel_phase(torch, flush, busy):
         emit(line)
         del got, want
     return max_err, entry
+
+
+# the recovery's retried rows a 1024-clip call of the benchmark cell, at its
+# clip width and the lattice key of the 3.1 % factor
+RS_ROWS, RS_T, RS_DEN = 1_125, 184_384, 11_640
+
+
+def resample_kernel_phase(torch, flush, busy):
+    """Phase 3g: the resample kernel against the parent's torch loop.
+
+    Returns (the relative error, the ``kernels`` entry).
+    """
+    from echoseal_torch.models.pipeline import RobustBatchVerifier as V
+    from echoseal_torch.ops import resample as pr
+
+    lo, hi = V.RETRY_REACH
+    rs = pr.DeviceResampler(V.RETRY_UP, int(V.RETRY_UP * lo) - 4,
+                            int(V.RETRY_UP * hi) + 4, RS_T, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 37)
+    x = torch.randn(RS_ROWS, RS_T, device="cuda", generator=g)
+    taps, off, s0 = rs._plan_dev(RS_DEN)
+    up, k_taps = taps.shape
+    n_out = -(-RS_T * up // RS_DEN)
+
+    def kernel():
+        return rs(x, RS_DEN, width=RS_T)[0]
+
+    def plain():      # the torch loop every card resample ran before
+        return pr._resample_stage(x, taps, off, s0, RS_DEN,
+                                  min(n_out, rs.n_blocks * up),
+                                  n_blocks=rs.n_blocks,
+                                  pad_left=rs.pad_left)[:, :RS_T]
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max() / want.abs().max())
+    check(err <= RESAMPLE_TOL, f"resample kernel vs its torch loop: {err}")
+    del got, want
+    # each row's input as far as the kept outputs reach it, read once, and
+    # its kept outputs written once
+    reach = min(RS_T, -(-RS_T * RS_DEN // up) + k_taps)
+    t_bytes = 4 * RS_ROWS * (reach + RS_T) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * k_taps * RS_ROWS * RS_T / FP32_FLOP_PER_S * 1e3
+    line = {"phase": "kernel_check", "name": "resample", "rows": RS_ROWS,
+            "t_in": RS_T, "width": RS_T, "up": up, "down": RS_DEN,
+            "k_taps": k_taps, "rel_err": err,
+            "ms": cuda_ms(kernel, torch, flush=flush, busy=busy),
+            "plain_ms": cuda_ms(plain, torch, n=5, flush=flush, busy=busy),
+            "bound_ms": max(t_bytes, t_ops), "ops_ms": t_ops,
+            "bytes_ms": t_bytes,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    emit(line)
+    entry = {"name": "resample", "route": "cuda",
+             "source": "echoseal_torch/csrc/resample.cu",
+             "replaces": "echoseal_tpu/ops/resample.py:_resample_stage "
+                         "(XLA; no Pallas kernel)",
+             "launches": None, "max_abs_err": None,
+             **{k: line[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")}}
+    del x
+    return err, entry
 
 
 def host_sync_ms(fn, torch, n: int = 25) -> float:
@@ -1852,6 +1922,9 @@ def recover_phases(torch, card, rv, cpu, stream):
           f"{np.flatnonzero(~verdicts).tolist()}")
     check(decode_launches(launches_ingest) > 0,
           "payload_decode never launched on the ingest path")
+    check(launches_ingest.get("resample", 0) == 1,
+          f"resample launches of one ingest call: {launches_ingest}")
+    RESAMPLE_BY_PATH["ingest_44k1"] = 1
     ingest_ms = cuda_ms(lambda: rv._ingest(cap, nv44, 44_100), torch, n=3)
     calls = []
     for _ in range(2):
@@ -1870,9 +1943,6 @@ def recover_phases(torch, card, rv, cpu, stream):
           "accepted_read_as_48k": int(as_48k.sum()),
           "resampler_rel_err_8_rows": rs_err, "tol": RESAMPLE_TOL,
           "k_taps": k_taps, "ingest_ms": ingest_ms,
-          # per tap: the gather reads and writes a (B, t_out) fp32 array,
-          # the accumulate reads two and writes one
-          "ingest_gb_moved": 5 * 4 * B * TPAD_REC * k_taps / 1e9,
           # the function's own floor: the input read once, the output
           # written once, at the card's memory rate
           "ingest_bound_ms": 4 * B * (TPAD_44K + TPAD_REC)
@@ -1906,7 +1976,8 @@ def recover_phases(torch, card, rv, cpu, stream):
         rec = rv.verify_batch_recover(scaled, nvs)
     torch.cuda.synchronize()
     rec_s = time.perf_counter() - t0
-    secs = _recover_seconds(tr.drain())
+    spans = tr.drain()
+    secs = _recover_seconds(spans)
     launches_rec = dict(build.LAUNCHES)
     scl_launches("timescale_recover", launches_rec)
     n_chunks = -(-rv.recover_log["scan_rows"] // rv.SCAN_CHUNK)
@@ -1950,6 +2021,13 @@ def recover_phases(torch, card, rv, cpu, stream):
           f"payload_decode launches {launches_rec} vs 1 + {len(rounds)} rounds")
     check(sum(r["host_rows"] for r in rounds) == 0,
           "a +-5 % factor left the device resampler family")
+    # one resample launch a lattice group, each inside its span
+    n_groups = sum(r["dens"] for r in rounds)       # dens counted above
+    rs_spans = [sp for sp in spans if sp["name"] == "recover.resample"]
+    check(launches_rec.get("resample", 0) == n_groups == len(rs_spans)
+          and all(sp["attrs"].get("launches") == 1 for sp in rs_spans),
+          f"resample launches {launches_rec} vs {n_groups} lattice groups")
+    RESAMPLE_BY_PATH["timescale_recover"] = n_groups
 
     mix_f = np.asarray(MIXED_FACTORS)[rng.integers(0, len(MIXED_FACTORS),
                                                    N_MIXED)]
@@ -3473,6 +3551,7 @@ def main() -> None:
     serving_err, serving_entry = serving_kernel_phase(torch, flush, busy)
     sync_err, sync_entry = sync_kernel_phase(torch, flush, busy)
     scan_err, scan_entry = scan_kernel_phase(torch, flush, busy)
+    resample_err, resample_entry = resample_kernel_phase(torch, flush, busy)
     del flush
 
     by_path = {}
@@ -3513,12 +3592,15 @@ def main() -> None:
                               (scl_entry, SCL_BY_PATH, scl_err),
                               (serving_entry, SERVING_BY_PATH, serving_err),
                               (sync_entry, SYNC_BY_PATH, sync_err),
-                              (scan_entry, SCAN_BY_PATH, scan_err)):
+                              (scan_entry, SCAN_BY_PATH, scan_err),
+                              (resample_entry, RESAMPLE_BY_PATH,
+                               resample_err)):
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
         entry["max_abs_err"] = err
     print(json.dumps({"kernels": [decode_entry, llr_entry, scl_entry,
-                                  serving_entry, sync_entry, scan_entry]}),
+                                  serving_entry, sync_entry, scan_entry,
+                                  resample_entry]}),
           flush=True)
 
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

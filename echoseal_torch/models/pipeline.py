@@ -55,7 +55,7 @@ from echoseal_torch.core.params import FRAME_LEN, HDR_L, MAGIC, PRE_L, WIDE_DELT
 from echoseal_torch.core.profiles import ROBUST, WaveformProfile, profile_spec
 from echoseal_torch.core.sequences import bits_to_bpsk, mls63
 from echoseal_torch.models import robust
-from echoseal_torch.ops import demod
+from echoseal_torch.ops import build, demod
 from echoseal_torch.ops.llr import payload_decode
 from echoseal_torch.ops.polar import PolarSpec, polar_spec
 from echoseal_torch.ops.resample import DeviceResampler
@@ -823,7 +823,10 @@ class RobustBatchVerifier(BatchVerifier):
         Runs the device stage, then ``_finish_ladder``.  With ``fs_in``
         (e.g. 44100) the batch is rate-converted on the device first
         (``_ingest``), the batch-tier equivalent of a host ``resample_to``
-        per clip; ``n_valid`` is then given in INPUT samples.
+        per clip; ``n_valid`` is then given in INPUT samples.  ``fs_in`` may
+        be up to about 150 times ``self.fs`` (the resampler's
+        ``RESAMPLE_MAX_K`` taps a phase); a faster capture is refused with
+        ValueError.
         """
         ingest = None
         if fs_in is not None and int(fs_in) != self.fs:
@@ -1234,13 +1237,16 @@ class RobustBatchVerifier(BatchVerifier):
                                den=den) as rsp:
                         marks = rsp.marks_for(self.device)
                         misses = rs.misses
-                        midx = torch.as_tensor(members, device=self.device)
-                        y, n_out = rs(clips_dev[midx], den)
+                        launches = build.LAUNCHES["resample"]
+                        y, n_out = rs(clips_dev, den, rows=members,
+                                      width=Tpad)
                         _mark(marks, "resample")
-                        rsp.attrs["miss"] = rs.misses - misses
+                        rsp.attrs.update(
+                            miss=rs.misses - misses,
+                            launches=build.LAUNCHES["resample"] - launches)
                     L = min(n_out, Tpad)
                     recs.append(_RetryGroup(
-                        y[:, :Tpad], members, den,
+                        y, members, den,
                         [min(int(int(nv_dev[i]) * q / den), L)
                          for i in members], False))
                     continue

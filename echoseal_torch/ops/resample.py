@@ -12,11 +12,13 @@ growing with the decimation ratio)
 
     y[j*up + n] = sum_t  x[j*down + s0 + off[n] + t] * taps[n, t]
 
-where ``off``/``taps`` depend only on the in-block phase ``n``.  So the
-whole resample is one index lattice ``(n_blocks, up)`` into the
-zero-padded input, K shifted row gathers and K fused multiply-adds:
-bandwidth-bound, no matmul.  The input is padded with zeros on both sides
-as far as the lattice reaches, so every read outside it is zero by
+where ``off``/``taps`` depend only on the in-block phase ``n``: bandwidth-
+bound, no matmul.  On a CUDA device ``resample_batch`` runs it as one
+launch of ``csrc/resample.cu`` (each input sample read and each output
+written once).  On the CPU its plain version ``_resample_stage`` is one
+index lattice ``(n_blocks, up)`` into the zero-padded input, K shifted row
+gathers and K fused multiply-adds; the input is padded with zeros on both
+sides as far as the lattice reaches, so every read outside it is zero by
 construction.
 
 ``taps`` is built on the host from the exact FIR scipy designs (firwin,
@@ -35,18 +37,26 @@ path this mirrors is reference utils.py:58-66 (``resample_to``).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from math import gcd
 
 import numpy as np
 import torch
 
-__all__ = ["resample_plan", "resample_rows", "resample_to", "DeviceResampler"]
+from echoseal_torch.ops import build
+
+__all__ = ["resample_plan", "resample_rows", "resample_to", "DeviceResampler",
+           "resample_batch"]
 
 _PAD_LEFT = 64  # >= |s0| for every supported ratio (checked per plan)
 # float32 elements of one per-tap temporary: three such arrays are live
 # while a row chunk is resampled (gather, product, accumulator)
 DEFAULT_CHUNK_ELEMS = 64 << 20
+# ``csrc/resample.cu`` takes up to RESAMPLE_MAX_K taps a phase (K ~ 20 *
+# down / up for decimations: a capture of up to about 150 times the output
+# rate); both routes refuse more
+RESAMPLE_MAX_K = 3072
 
 
 def resample_to(fs_target: int, audio: np.ndarray, fs_in: int) -> np.ndarray:
@@ -172,6 +182,99 @@ def _resample_stage(x: torch.Tensor, taps: torch.Tensor, off: torch.Tensor,
     return y
 
 
+@functools.lru_cache(maxsize=1)
+def _resample_launcher():
+    fn = build.load("resample").resample_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@torch.no_grad()
+def resample_batch(x: torch.Tensor, rows, taps: torch.Tensor,
+                   off: torch.Tensor, s0: int, down: int, n_out: int, *,
+                   n_blocks: int, width: int | None = None,
+                   pad_left: int = _PAD_LEFT,
+                   chunk_elems: int = DEFAULT_CHUNK_ELEMS) -> torch.Tensor:
+    """The resample of ``x``'s rows ``rows``: (len(rows), ``width``).
+
+    ``x`` (B, T) float32 with unit stride along T; ``rows`` host indices
+    into its rows (a sequence, numpy or CPU tensor; None for all rows, in
+    order; repeats allowed); ``taps`` (up, K) float32, ``off`` (up,) int32
+    and ``s0`` one plan (``resample_plan``) on ``x``'s device; output
+    ``o < n_out`` is ``_resample_stage``'s, the rest zeros, up to ``width``
+    (default and at most ``n_blocks * up``).  CUDA tensors go through
+    ``csrc/resample.cu``, one launch on the current stream (counted in
+    ``build.LAUNCHES["resample"]``), which reads the rows by index and
+    writes each output once; CPU tensors through ``_resample_stage`` on
+    ``x[rows]`` (``pad_left``, ``chunk_elems`` as it takes them).  Both
+    refuse the same inputs, and tensors on another device or on two; there
+    is no fallback.
+    """
+    tensors = (x, taps, off)
+    on_cpu = all(t.device.type == "cpu" for t in tensors)
+    dev = x.device
+    if not on_cpu and (dev.type != "cuda" or
+                       any(t.device != dev for t in tensors)):
+        raise ValueError(
+            "resample: tensors on "
+            f"{', '.join(str(t.device) for t in tensors)}; need all on one "
+            "CUDA device or all on the CPU")
+    if x.dtype != torch.float32 or taps.dtype != torch.float32 or \
+            off.dtype != torch.int32:
+        raise ValueError(f"resample: dtypes {x.dtype}, {taps.dtype}, "
+                         f"{off.dtype}; need float32 x and taps, int32 off")
+    B, T = x.shape if x.ndim == 2 else (-1, -1)
+    up, K = taps.shape if taps.ndim == 2 else (-1, -1)
+    down, n_out = int(down), int(n_out)
+    row = n_blocks * up
+    width = row if width is None else int(width)
+    if x.ndim != 2 or taps.ndim != 2 or off.shape != (up,) or T < 1 or \
+            not 1 <= K <= RESAMPLE_MAX_K or down < 1 or \
+            not 0 <= width <= row or not 0 <= n_out <= row:
+        raise ValueError(
+            f"resample: shapes {tuple(x.shape)}, {tuple(taps.shape)}, "
+            f"{tuple(off.shape)}, down {down}, n_out {n_out}, width {width}; "
+            "need (B, T), (up, K), (up,) with 1 <= K <= "
+            f"{RESAMPLE_MAX_K} taps, 0 <= n_out, width <= n_blocks * up")
+    if x.stride(-1) != 1 or not taps.is_contiguous() or \
+            not off.is_contiguous():
+        raise ValueError("resample: x needs unit stride along T, taps and "
+                         "off must be contiguous")
+    if isinstance(rows, torch.Tensor) and rows.device.type != "cpu":
+        raise ValueError("resample: rows must be host indices")
+    idx = (np.arange(B, dtype=np.int64) if rows is None
+           else np.asarray(rows, dtype=np.int64))
+    if idx.ndim != 1 or (idx.size and not 0 <= idx.min() <= idx.max() < B):
+        raise ValueError(f"resample: rows must be 1-D indices in [0, {B})")
+    if B >= 2 ** 31 or T >= 2 ** 31 or idx.size >= 2 ** 31 or \
+            idx.size * -(-width // max(up, 1)) >= 2 ** 30:
+        raise ValueError("resample: more than 2**31 - 1 rows or samples")
+    if on_cpu:
+        xs = x if rows is None else x[torch.from_numpy(idx)]
+        return _resample_stage(xs, taps, off, int(s0), down, n_out,
+                               n_blocks=n_blocks, pad_left=pad_left,
+                               chunk_elems=chunk_elems)[:, :width]
+    y = torch.empty((idx.size, width), dtype=torch.float32, device=dev)
+    if idx.size == 0 or width == 0:
+        return y
+    # pinned, so the upload does not wait for the stream's earlier work
+    idx_dev = torch.from_numpy(idx).pin_memory().to(dev, non_blocking=True)
+    with torch.cuda.device(dev):
+        rc = _resample_launcher()(
+            x.data_ptr(), x.stride(0), T, idx_dev.data_ptr(), idx.size,
+            taps.data_ptr(), off.data_ptr(), up, K, down, int(s0), n_out,
+            y.data_ptr(), width, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"resample kernel launch failed: cudaError {rc}")
+    build.LAUNCHES["resample"] += 1
+    return y
+
+
 class DeviceResampler:
     """Resampler for a family of ``down`` on one ``up``, one input width.
 
@@ -181,7 +284,8 @@ class DeviceResampler:
 
     ``device`` is the device of the plan tables and of the work; the input
     is moved there.  Per-``down`` cost is one host FIR design plus an
-    ``(up, K)`` float32 table on the device, LRU-cached.
+    ``(up, K)`` float32 table on the device, LRU-cached.  On a CUDA device
+    each call is one launch of ``csrc/resample.cu``; on the CPU
     ``chunk_elems`` bounds the temporaries (see ``_resample_stage``).
     """
 
@@ -229,8 +333,14 @@ class DeviceResampler:
         self._plans[down] = plan          # (re-)insert at LRU tail
         return plan
 
-    def __call__(self, x, down: int) -> tuple[torch.Tensor, int]:
-        """(B, t_in) -> ((B, n_blocks*up) zero past ``n_out``, ``n_out``)."""
+    def __call__(self, x, down: int, *, rows=None, width: int | None = None
+                 ) -> tuple[torch.Tensor, int]:
+        """(B, t_in) -> ((len(rows), width) zero past ``n_out``, ``n_out``).
+
+        ``rows`` picks input rows by host index (default all, in order) and
+        ``width`` the output columns kept (default and at most
+        ``n_blocks * up``); see ``resample_batch``.
+        """
         down = int(down)
         if not (self.down_min <= down <= self.down_max):
             raise ValueError(f"down={down} outside the family "
@@ -239,11 +349,11 @@ class DeviceResampler:
             raise ValueError(f"t_in={x.shape[-1]} != {self.t_in}")
         taps_dev, off_dev, s0 = self._plan_dev(down)
         n_out = -(-self.t_in * self.up // down)
-        y = _resample_stage(
+        y = resample_batch(
             torch.as_tensor(x, dtype=torch.float32, device=self.device),
-            taps_dev, off_dev, s0, down,
+            rows, taps_dev, off_dev, s0, down,
             min(n_out, self.n_blocks * self.up), n_blocks=self.n_blocks,
-            pad_left=self.pad_left, chunk_elems=self.chunk_elems)
+            width=width, pad_left=self.pad_left, chunk_elems=self.chunk_elems)
         return y, n_out
 
 

@@ -54,14 +54,15 @@ def test_payload_llr_rejects_other_devices():
 
 
 def test_kernel_sources_found():
-    assert build.sources() == ["payload_decode", "payload_llr", "scale_scan",
-                               "scl_decode", "sync_xcorr"]
+    assert build.sources() == ["payload_decode", "payload_llr", "resample",
+                               "scale_scan", "scl_decode", "sync_xcorr"]
     assert build.library_path("payload_llr").name.startswith("libpayload_llr-")
     assert build.library_path("payload_decode").name.startswith(
         "libpayload_decode-")
     assert build.library_path("scl_decode").name.startswith("libscl_decode-")
     assert build.library_path("sync_xcorr").name.startswith("libsync_xcorr-")
     assert build.library_path("scale_scan").name.startswith("libscale_scan-")
+    assert build.library_path("resample").name.startswith("libresample-")
 
 
 def _decode_inputs(n, device, spec, seed=0, lead=None, m=64):
@@ -663,3 +664,137 @@ def test_scale_scan_refusals_on_card():
         with pytest.raises(ValueError):
             robust._scale_scan_batch(*args)
     assert dict(build.LAUNCHES) == before
+
+
+def _retry_family(T):
+    """The recovery's device resampler family (``_device_resampler``)."""
+    from echoseal_torch.models.pipeline import RobustBatchVerifier as V
+    from echoseal_torch.ops.resample import DeviceResampler
+
+    lo, hi = V.RETRY_REACH
+    return DeviceResampler(V.RETRY_UP, int(V.RETRY_UP * lo) - 4,
+                           int(V.RETRY_UP * hi) + 4, T, device="cuda")
+
+
+# (up, down, T, rows): the recovery lattice's reach at its clip width, the
+# ingest ratios (96, 352.8, 384 and 768 kHz as ``_ingest`` lays them out:
+# K 44, 151, 164 and 324, the last on a narrowed tile), one row, rows not a
+# multiple of a stage's eight items, unordered and repeated rows, inputs
+# shorter than one lattice block
+RESAMPLE_CASES = [
+    *[(12_000, d, 184_384, [5, 0, 3, 3, 1, 6, 2])
+      for d in (10_511, 11_639, 11_640, 12_599, 13_642)],
+    (12_000, 11_640, 184_384, [4]),
+    (160, 147, 154_350, [2, 0, 1]),
+    (1, 2, 9_600, [1, 1, 0]),
+    (160, 294, 9_600, [0, 1]),
+    (128, 256, 9_600, [1, 0]),
+    (140, 1_029, 70_560, [0, 2, 2]),
+    (128, 1_024, 76_800, [1, 0]),
+    (128, 2_048, 76_800, [1]),
+    (12_000, 12_599, 37, [1, 0, 1]),
+    (160, 147, 37, [0]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up,down,T,rows", RESAMPLE_CASES)
+def test_resample_kernel_on_card(up, down, T, rows):
+    """The resample kernel against its plain version on the card and
+    against float64 ``scipy.signal.resample_poly``, 1e-5 relative; zeros
+    past ``n_out`` within the kept width; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from scipy.signal import resample_poly
+
+    from echoseal_torch.ops import resample as pr
+
+    rng = np.random.default_rng(up + down + T)
+    x = torch.from_numpy(rng.standard_normal((8, T)).astype(np.float32))
+    rs = (_retry_family(T) if up == 12_000 and T > 1_000
+          else pr.DeviceResampler(up, down, down, T, device="cuda"))
+    width = min(T, rs.n_blocks * up) if T > 1_000 else rs.n_blocks * up
+    xd = x.cuda()
+    before = build.LAUNCHES["resample"]
+    got, n_out = rs(xd, down, rows=rows, width=width)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["resample"] == before + 1
+    assert got.shape == (len(rows), width) and got.is_contiguous()
+    taps, off, s0 = rs._plan_dev(down)
+    keep = min(n_out, width)
+    plain = pr._resample_stage(
+        xd[torch.tensor(rows, device="cuda")], taps, off, s0, down,
+        min(n_out, rs.n_blocks * up), n_blocks=rs.n_blocks,
+        pad_left=rs.pad_left)[:, :width]
+    scale = float(plain.abs().max())
+    assert float((got - plain).abs().max()) <= 1e-5 * scale
+    ref = resample_poly(x.numpy()[rows].astype(np.float64), up, down,
+                        axis=-1)
+    assert ref.shape[-1] == n_out
+    g = got.cpu().numpy()
+    assert np.abs(g[:, :keep] - ref[:, :keep]).max() <= \
+        1e-5 * np.abs(ref).max()
+    assert np.abs(g[:, keep:]).max(initial=0.0) == 0.0
+
+
+@pytest.mark.cuda
+def test_resample_kernel_alone_on_card():
+    """A resample on the card launches the kernel and nothing else: no
+    gather, multiply-add, pad, copy or fill of its own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rs = _retry_family(184_384)
+    x = torch.randn(16, 184_384, device="cuda")
+    rs(x, 11_640, rows=[3, 1], width=184_384)         # plan, library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for den in (11_640, 11_639):
+            rs(x, den, rows=list(range(0, 16, 2)), width=184_384)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("Memcpy")]
+    assert kernels and all("resample_kernel" in k for k in kernels), kernels
+
+
+@pytest.mark.cuda
+def test_resample_refusals_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from echoseal_torch.ops import resample as pr
+
+    rs = pr.DeviceResampler(1000, 950, 1050, 2_000, device="cuda")
+    taps, off, s0 = rs._plan_dev(1031)
+    x = torch.zeros(3, 2_000, device="cuda")
+    before = dict(build.LAUNCHES)
+    for args in ((x.cpu(), None, taps, off), (x, None, taps.cpu(), off),
+                 (x, None, taps, off.cpu()), (x.double(), None, taps, off),
+                 (x, None, taps, off.long()),
+                 (x, torch.tensor([0], device="cuda"), taps, off),
+                 (x, [0, 3], taps, off), (x, [-1], taps, off),
+                 (x[:, ::2], None, taps, off)):
+        with pytest.raises(ValueError):
+            pr.resample_batch(*args, s0, 1031, 1_940, n_blocks=rs.n_blocks)
+    assert dict(build.LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_resample_kernel_unaligned_rows_on_card():
+    """Rows that do not start on a 16-byte boundary (a view one sample in)
+    take the kernel's 4-byte copies and give the same outputs, bit for
+    bit, as the aligned rows' 16-byte copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    T = 184_384
+    rs = _retry_family(T)
+    wide = torch.randn(6, T + 1, device="cuda")
+    view = wide[:, 1:]
+    assert view.data_ptr() % 16 != 0
+    before = build.LAUNCHES["resample"]
+    got, _ = rs(view, 12_599, rows=[5, 2, 2], width=T)
+    want, _ = rs(view.contiguous(), 12_599, rows=[5, 2, 2], width=T)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["resample"] == before + 2
+    assert torch.equal(got, want)

@@ -163,3 +163,100 @@ def test_resample_to_equals_jax_host_helper():
     for fs_t, fs_in in ((48_000, 44_100), (48_000, 48_000), (46_602, 48_000)):
         np.testing.assert_array_equal(pr.resample_to(fs_t, x, fs_in),
                                       j_resample_to(fs_t, x, fs_in))
+
+
+# ------------------------------------------- rows by index, kept width
+def test_rows_and_width_select_and_trim(x3):
+    """``rows`` (unordered, repeated) and ``width`` equal the whole
+    resample's rows and columns bit for bit on the CPU."""
+    rs = pr.DeviceResampler(1000, 950, 1050, x3.shape[-1], device="cpu")
+    xt = torch.from_numpy(x3)
+    whole, n_out = rs(xt, 1031)
+    for rows, width in (([2, 0, 0], 40_000), ([1], n_out + 17),
+                        (np.array([0, 2]), rs.n_blocks * 1000), ([], 500)):
+        y, n = rs(xt, 1031, rows=rows, width=width)
+        assert n == n_out and y.shape == (len(rows), width)
+        assert torch.equal(y, whole[list(rows)][:, :width])
+    y, _ = rs(xt, 1031, rows=torch.tensor([1, 1]), width=n_out + 17)
+    assert np.abs(y[:, n_out:].numpy()).max() == 0.0
+
+
+def _kernel_tiles(up, down, K):
+    """``csrc/resample.cu``'s launcher: the tile (outputs a block), the
+    lattice blocks a tile takes (m), the staged span of one item's input
+    and the taps the loop runs over (K in whole slices of 28)."""
+    kpad = -(-K // 28) * 28
+    tile = min(256, (3200 - 6 - kpad) * up // down + 1)
+    span = (-(-(tile - 1) * down // up) + kpad + 6) // 4 * 4
+    return tile, (1 if up >= tile else tile // up), span, kpad
+
+
+@pytest.mark.parametrize("up,down,T", [
+    (12_000, 10_511, 30_000), (12_000, 13_642, 30_000), (160, 147, 3_000),
+    (160, 294, 3_000), (1, 2, 1_000), (128, 256, 2_000), (12_000, 11_640, 37),
+    (128, 1_024, 2_000), (140, 1_029, 2_000), (128, 2_048, 2_000),
+    (1, 150, 2_000)])
+def test_kernel_tiles_replay_plain(up, down, T):
+    """Every output of a kernel tile reads inside the input run the kernel
+    stages for the tile (the bound its launcher sizes the run by; the kernel
+    answers a plan outside it with NaN), for every ratio family the port
+    uses, the 384 and 768 kHz ingest lattices (K 164 and 324, the latter on
+    a narrowed tile) and the widest decimation taken."""
+    rs = pr.DeviceResampler(up, down, down, T, device="cpu")
+    taps, off, s0 = pr.resample_plan(up, down, rs.k_taps)
+    assert rs.k_taps <= pr.RESAMPLE_MAX_K
+    tile, m, span, kpad = _kernel_tiles(up, down, rs.k_taps)
+    assert 1 <= tile <= 256 and span <= 3200
+    ups = m * up
+    for s_first in range(0, ups, tile):
+        s = np.arange(s_first, min(s_first + tile, ups))
+        off_first = (s_first // up) * down + int(off[s_first % up])
+        local = (s // up) * down + off[s % up] - off_first
+        # the 16-byte copies start up to 3 samples before the run
+        assert local.min() >= 0 and local.max() + 3 + kpad <= span
+
+
+_REFUSALS = {
+    "x_float64": lambda x, t, o: ((x.double(), None, t, o), {}),
+    "taps_half": lambda x, t, o: ((x, None, t.half(), o), {}),
+    "off_int64": lambda x, t, o: ((x, None, t, o.long()), {}),
+    "x_1d": lambda x, t, o: ((x[0], None, t, o), {}),
+    "no_taps": lambda x, t, o: ((x, None, t[:, :0], o), {}),
+    "too_many_taps": lambda x, t, o: (
+        (x, None, torch.zeros(1000, pr.RESAMPLE_MAX_K + 1), o), {}),
+    "off_short": lambda x, t, o: ((x, None, t, o[:-1]), {}),
+    "x_strided": lambda x, t, o: ((x.mT.contiguous().mT, None, t, o), {}),
+    "taps_strided": lambda x, t, o: ((x, None, t.mT.contiguous().mT, o), {}),
+    "row_past_end": lambda x, t, o: ((x, [0, 3], t, o), {}),
+    "row_negative": lambda x, t, o: ((x, [-1], t, o), {}),
+    "rows_2d": lambda x, t, o: ((x, [[0]], t, o), {}),
+    "too_wide": lambda x, t, o: ((x, None, t, o), {"width": 3 * 1000 + 1}),
+    "off_on_meta": lambda x, t, o: ((x, None, t, o.to("meta")), {}),
+    "x_on_meta": lambda x, t, o: ((x.to("meta"), None, t, o), {}),
+}
+
+
+@pytest.mark.parametrize("case", list(_REFUSALS))
+def test_resample_refusals(case):
+    """``resample_batch`` refuses what the kernel does not take, on the CPU
+    as on the card: dtypes, shapes, strides, rows out of range, devices."""
+    rs = pr.DeviceResampler(1000, 950, 1050, 2_000, device="cpu")
+    assert rs.n_blocks == 3
+    taps, off, s0 = rs._plan_dev(1031)
+    args, extra = _REFUSALS[case](torch.zeros(3, 2_000), taps, off)
+    with pytest.raises(ValueError):
+        pr.resample_batch(*args, s0, 1031, 1_940, n_blocks=rs.n_blocks,
+                          **extra)
+
+
+def test_resample_refuses_wide_decimation():
+    """A decimation whose phases need more than RESAMPLE_MAX_K taps (160
+    to 1: 3 204) is refused; a 13 to 1 one with few taps is taken."""
+    y = pr.resample_batch(torch.zeros(1, 100), None, torch.zeros(1, 4),
+                          torch.zeros(1, dtype=torch.int32), 0, 13, 7,
+                          n_blocks=8)
+    assert y.shape == (1, 8) and not y.any()
+    rs = pr.DeviceResampler(1, 160, 160, 4_000, device="cpu")
+    assert rs.k_taps > pr.RESAMPLE_MAX_K
+    with pytest.raises(ValueError, match="taps"):
+        rs(torch.zeros(1, 4_000), 160)
